@@ -1,0 +1,101 @@
+// Bounce-tree forward render kernel: the full binary tree of the reference's
+// rayTraceRay recursion (MySdlApplication.cpp:1230-1248), for scenes with
+// fractional transparency.  At every hit a transmitted child weighted by the
+// transparency T and a reflected child weighted by the opacity 1-T are
+// traced, down to `depth` levels: 2^(depth+1)-1 nodes in preorder.
+//
+// Replaces the JAX package's kernels/render_pallas.py::_render_tile_tree_kernel
+// (its device code: _make_tile_ops and _tree_forward).
+//
+// Bound: compute, as the chain kernel (render_chain.cu), times the number of
+// live nodes.  The recursion becomes an explicit per-thread stack of depth+1
+// entries visited in the same preorder (transmitted subtree before
+// reflected), so the colour sums in the same order as the JAX kernel.  A node
+// that misses, or a child whose weight gate is 0, adds exactly zero and is
+// not visited; on a chain-exact scene the tree then costs what the chain
+// does.  This first version aims to be right; it is not tuned.
+#include "tile_ops.cuh"
+
+namespace rtfs {
+
+// Deepest tree the stack holds (kernels/render.py::TREE_MAX_DEPTH).
+constexpr int kTreeMaxDepth = 10;
+
+struct Node {
+  float ox, oy, oz, vx, vy, vz;
+  float thr[3];
+  int excl, level;
+};
+
+template <bool WANT_TRANS>
+__global__ void __launch_bounds__(256)
+render_tree_kernel(const float* __restrict__ tables, Params prm,
+                   const float* __restrict__ v, float* __restrict__ out,
+                   int num_pixels) {
+  extern __shared__ float smem[];
+  const Scene s = load_scene(smem, tables, prm);
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= num_pixels) return;
+
+  float col[3] = {0.0f, 0.0f, 0.0f};
+  Node stack[kTreeMaxDepth + 1];
+  int sp = 0;
+  stack[sp++] = Node{prm.eye_x, prm.eye_y, prm.eye_z,
+                     v[3 * p], v[3 * p + 1], v[3 * p + 2],
+                     {1.0f, 1.0f, 1.0f}, -1, 0};
+  while (sp > 0) {
+    const Node nd = stack[--sp];
+    Surf f;
+    int bi;
+    const float* mt;
+    Dirs d;
+    if (!trace_node<WANT_TRANS>(s, nd.ox, nd.oy, nd.oz, nd.vx, nd.vy, nd.vz,
+                                nd.excl, nd.thr, col, &f, &bi, &mt, &d))
+      continue;  // a miss zeroes both children
+    if (nd.level == prm.depth) continue;
+    // gates of the transmitted (T != 0 and |T| > SMALL, :1238) and
+    // reflected (opacity != 0, :1243) children; pushed reflected first so
+    // the transmitted subtree is visited first
+    const float take_f = mt[13];
+    const float refl_f = mt[14];
+    if (refl_f != 0.0f) {
+      stack[sp++] = Node{f.px, f.py, f.pz,
+                         d.rx * refl_f, d.ry * refl_f, d.rz * refl_f,
+                         {nd.thr[0] * (1.0f - mt[9]) * refl_f,
+                          nd.thr[1] * (1.0f - mt[10]) * refl_f,
+                          nd.thr[2] * (1.0f - mt[11]) * refl_f},
+                         bi, nd.level + 1};
+    }
+    if (take_f != 0.0f) {
+      stack[sp++] = Node{f.px, f.py, f.pz,
+                         d.tx * take_f, d.ty * take_f, d.tz * take_f,
+                         {nd.thr[0] * mt[9] * take_f,
+                          nd.thr[1] * mt[10] * take_f,
+                          nd.thr[2] * mt[11] * take_f},
+                         bi, nd.level + 1};
+    }
+  }
+  out[3 * p] = col[0];
+  out[3 * p + 1] = col[1];
+  out[3 * p + 2] = col[2];
+}
+
+}  // namespace rtfs
+
+// C entry, as rtfs_render_chain.  The caller guarantees
+// depth <= kTreeMaxDepth; a deeper tree returns cudaErrorInvalidValue.
+extern "C" int rtfs_render_tree(const float* tables, int ns, int nt, int m,
+                                int nl, const float* v, float* out,
+                                int num_pixels, float eye_x, float eye_y,
+                                float eye_z, int depth, float small,
+                                float atten, int white_id, int black_id,
+                                int want_trans, void* stream) {
+  if (depth < 0 || depth > rtfs::kTreeMaxDepth)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id,
+                   small, atten, eye_x, eye_y, eye_z};
+  return static_cast<int>(rtfs::launch_render(
+      want_trans ? rtfs::render_tree_kernel<true>
+                 : rtfs::render_tree_kernel<false>,
+      tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+}

@@ -1,0 +1,370 @@
+// Device code shared by the chain and tree render kernels (render_chain.cu,
+// render_tree.cu): the per-pixel counterparts of the JAX package's
+// kernels/render_pallas.py::_make_tile_ops (intersect_all, hit_attrs,
+// mat_attrs, secondary_dirs, shade).
+//
+// One thread traces one pixel.  The scene tables (the host's pack_scene
+// layouts, kernels/render.py) are copied into dynamic shared memory at block
+// start; every thread of a warp reads the same table entry in the sweeps, so
+// those reads are broadcasts.  Ids (primitive, material) are ints here; the
+// TPU kernel carried them as f32 planes.  Division is IEEE (nvcc's default
+// -prec-div=true), where the TPU used an approximate reciprocal plus a
+// Newton step; rsqrtf and fma contraction move a few decision-boundary
+// pixels against the plain PyTorch version.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace rtfs {
+
+// Table layouts, one row per primitive/material/light (kernels/render.py).
+constexpr int SPH_COLS = 8;    // cx cy cz r mat valid transp_any -
+constexpr int TRI_COLS = 24;   // v0(3) n(3) u(3) v(3) uv uu vv denom ndotv0
+                               // mat checker ok transp_any inv_denom - -
+constexpr int MAT_COLS = 20;   // amb(3) dif(3) spe(3) trn(3) rho take_trans
+                               // refl_ok transp_any - - - -
+constexpr int LIGHT_COLS = 8;  // pos(3) color(3) - -
+constexpr int MISC_COLS = 16;  // eye(3) board_pos(3) board_half board_sq - -
+// Shared-memory-only column: 1/denominator, filled at block start (the
+// host table leaves it 0).  The TPU kernel divided on its scalar core.
+constexpr int TRI_INV_DEN = 21;
+
+constexpr float BIG = 3.0e38f;
+
+// Launch-time scalars.  The flat table buffer is
+// misc(16) | sph(ns*8) | tri(nt*24) | mat(m*20) | light(nl*8).
+struct Params {
+  int ns, nt, m, nl;
+  int depth;
+  int white_id, black_id;
+  float small, atten;
+  float eye_x, eye_y, eye_z;
+};
+
+struct Scene {
+  const float* sph;
+  const float* tri;
+  const float* mat;
+  const float* light;
+  int ns, nt, m, nl;
+  float small, atten;
+  int white_id, black_id;
+  float board_x, board_z, board_half, inv_sq;
+};
+
+__host__ __device__ inline int table_floats(const Params& p) {
+  return MISC_COLS + p.ns * SPH_COLS + p.nt * TRI_COLS + p.m * MAT_COLS +
+         p.nl * LIGHT_COLS;
+}
+
+// Copies the tables into shared memory and fills the derived column.
+// Every thread of the block must call it (it synchronises).
+__device__ inline Scene load_scene(float* smem, const float* __restrict__ tables,
+                                   const Params& p) {
+  const int n = table_floats(p);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) smem[k] = tables[k];
+  __syncthreads();
+  Scene s;
+  const float* misc = smem;
+  s.sph = smem + MISC_COLS;
+  float* tri = smem + MISC_COLS + p.ns * SPH_COLS;
+  s.tri = tri;
+  s.mat = s.tri + p.nt * TRI_COLS;
+  s.light = s.mat + p.m * MAT_COLS;
+  for (int i = threadIdx.x; i < p.nt; i += blockDim.x)
+    tri[i * TRI_COLS + TRI_INV_DEN] = 1.0f / tri[i * TRI_COLS + 15];
+  __syncthreads();
+  s.ns = p.ns; s.nt = p.nt; s.m = p.m; s.nl = p.nl;
+  s.small = p.small; s.atten = p.atten;
+  s.white_id = p.white_id; s.black_id = p.black_id;
+  s.board_x = misc[3]; s.board_z = misc[5];
+  s.board_half = misc[6]; s.inv_sq = 1.0f / misc[7];
+  return s;
+}
+
+// ---- primitive tests (render_pallas.py::intersect_all's tri_hit/sph_hit) --
+
+// Triangle i against ray o + mm*v: returns the hit predicate (without the
+// valid/exclusion gates, which the sweeps test first) and the parametric
+// distance mm along the unnormalized direction.
+__device__ __forceinline__ bool tri_hit(const Scene& s, int i, float ox,
+                                        float oy, float oz, float vx, float vy,
+                                        float vz, float* mm_out) {
+  const float* t = s.tri + i * TRI_COLS;
+  const float ndv = t[3] * vx + t[4] * vy + t[5] * vz;
+  const bool plane_ok = fabsf(ndv) >= s.small;
+  const float ndo = t[3] * ox + t[4] * oy + t[5] * oz;
+  const float mm = (t[16] - ndo) * (1.0f / (plane_ok ? ndv : 1.0f));
+  // barycentrics via the precomputed edge dots
+  const float px = ox + mm * vx - t[0];
+  const float py = oy + mm * vy - t[1];
+  const float pz = oz + mm * vz - t[2];
+  const float wu = px * t[6] + py * t[7] + pz * t[8];
+  const float wv = px * t[9] + py * t[10] + pz * t[11];
+  const float inv_den = t[TRI_INV_DEN];
+  const float sb = (t[12] * wv - t[14] * wu) * inv_den;
+  const float tb = (t[12] * wu - t[13] * wv) * inv_den;
+  *mm_out = mm;
+  return plane_ok && mm >= s.small && sb >= 0.0f && tb >= 0.0f &&
+         sb + tb <= 1.0f;
+}
+
+// Sphere i against the unit direction u: hit predicate and Euclidean
+// distance of the near root only (Shape::intersection :752).
+__device__ __forceinline__ bool sph_hit(const Scene& s, int i, float ox,
+                                        float oy, float oz, float ux, float uy,
+                                        float uz, float* dist_out) {
+  const float* c = s.sph + i * SPH_COLS;
+  const float dx = c[0] - ox, dy = c[1] - oy, dz = c[2] - oz;
+  const float ud = ux * dx + uy * dy + uz * dz;
+  const float rad = c[3];
+  const float disc = ud * ud - (dx * dx + dy * dy + dz * dz) + rad * rad;
+  const float dist = disc > 0.0f ? ud - sqrtf(disc) : ud;
+  *dist_out = dist;
+  return disc >= 0.0f && dist >= s.small;
+}
+
+struct Ray {
+  float vlen2, inv_vlen, vlen, ux, uy, uz;
+  bool ok;
+};
+
+__device__ __forceinline__ Ray ray_setup(float vx, float vy, float vz,
+                                         bool ray_ok) {
+  Ray r;
+  r.vlen2 = vx * vx + vy * vy + vz * vz;
+  r.ok = ray_ok && r.vlen2 > 0.0f;
+  r.inv_vlen = rsqrtf(r.ok ? r.vlen2 : 1.0f);
+  r.vlen = r.vlen2 * r.inv_vlen;
+  r.ux = vx * r.inv_vlen; r.uy = vy * r.inv_vlen; r.uz = vz * r.inv_vlen;
+  return r;
+}
+
+// Closest hit over all primitives, triangles first with strict < (the
+// reference's insertion-order tie-breaking), excluding the ray's origin
+// primitive `excl` (SEMANTICS.md D1).  Primitive ids: triangle i -> i,
+// sphere i -> nt + i; -1 on a miss.  With CARRY_TRANSP the winner's
+// transparency flag is carried instead of its id (shadow sweeps).
+template <bool CARRY_TRANSP>
+__device__ __forceinline__ void intersect_closest(
+    const Scene& s, float ox, float oy, float oz, float vx, float vy,
+    float vz, int excl, const Ray& r, float* bd_out, int* bi_out,
+    float* transp_out) {
+  float bd = BIG;
+  int bi = -1;
+  float transp = 0.0f;
+  if (r.ok) {
+    for (int i = 0; i < s.nt; ++i) {
+      const float* t = s.tri + i * TRI_COLS;
+      if (!(t[19] > 0.5f) || i == excl) continue;
+      float mm;
+      if (tri_hit(s, i, ox, oy, oz, vx, vy, vz, &mm)) {
+        const float dist = mm * r.vlen;
+        if (dist < bd) { bd = dist; bi = i; transp = t[20]; }
+      }
+    }
+    for (int i = 0; i < s.ns; ++i) {
+      const float* c = s.sph + i * SPH_COLS;
+      if (!(c[5] > 0.5f) || s.nt + i == excl) continue;
+      float dist;
+      if (sph_hit(s, i, ox, oy, oz, r.ux, r.uy, r.uz, &dist)) {
+        if (dist < bd) { bd = dist; bi = s.nt + i; transp = c[6]; }
+      }
+    }
+  }
+  *bd_out = bd;
+  *bi_out = bi;
+  if constexpr (CARRY_TRANSP) *transp_out = transp;
+}
+
+// Any-hit occlusion: valid only when no material is transparent, where
+// "lit = nearest occluder missing or transparent" (MySdlApplication.cpp:1221)
+// degenerates to "lit = no occluder".  Stops at the first occluder.
+__device__ __forceinline__ bool occluded_any(const Scene& s, float ox,
+                                             float oy, float oz, float vx,
+                                             float vy, float vz, int excl,
+                                             const Ray& r) {
+  if (!r.ok) return false;
+  for (int i = 0; i < s.nt; ++i) {
+    const float* t = s.tri + i * TRI_COLS;
+    if (!(t[19] > 0.5f) || i == excl) continue;
+    float mm;
+    if (tri_hit(s, i, ox, oy, oz, vx, vy, vz, &mm)) return true;
+  }
+  for (int i = 0; i < s.ns; ++i) {
+    const float* c = s.sph + i * SPH_COLS;
+    if (!(c[5] > 0.5f) || s.nt + i == excl) continue;
+    float dist;
+    if (sph_hit(s, i, ox, oy, oz, r.ux, r.uy, r.uz, &dist)) return true;
+  }
+  return false;
+}
+
+// ---- hit attributes (render_pallas.py::hit_attrs) -------------------------
+
+struct Surf {
+  float px, py, pz, nx, ny, nz;
+  int mid;
+};
+
+// The TPU blended attributes over every primitive by mask; here the winner's
+// row is loaded directly.  On a miss (bi = -1) the result is what the blend
+// gives: is_tri is true, the normal is zero, mid is 0 (no checker override).
+__device__ __forceinline__ Surf hit_attrs(const Scene& s, float bd, int bi,
+                                          bool hitm, float ox, float oy,
+                                          float oz, const Ray& r) {
+  float tnx = 0.0f, tny = 0.0f, tnz = 0.0f, tchk = 0.0f;
+  float scx = 0.0f, scy = 0.0f, scz = 0.0f;
+  int tmid = 0, smid = 0;
+  if (bi >= 0 && bi < s.nt) {
+    const float* t = s.tri + bi * TRI_COLS;
+    tnx = t[3]; tny = t[4]; tnz = t[5];
+    tmid = static_cast<int>(t[17]);
+    tchk = t[18];
+  } else if (bi >= s.nt) {
+    const float* c = s.sph + (bi - s.nt) * SPH_COLS;
+    scx = c[0]; scy = c[1]; scz = c[2];
+    smid = static_cast<int>(c[4]);
+  }
+  const bool is_tri = bi < s.nt;
+  Surf f;
+  // bd is the Euclidean distance for both kinds: point = o + bd * u
+  const float bd_safe = hitm ? bd : 0.0f;
+  f.px = ox + bd_safe * r.ux;
+  f.py = oy + bd_safe * r.uy;
+  f.pz = oz + bd_safe * r.uz;
+  const float d0x = f.px - scx, d0y = f.py - scy, d0z = f.pz - scz;
+  const float d0sq = d0x * d0x + d0y * d0y + d0z * d0z;
+  const float inv_d0 = rsqrtf(d0sq > 0.0f ? d0sq : 1.0f);
+  f.nx = hitm ? (is_tri ? tnx : d0x * inv_d0) : 0.0f;
+  f.ny = hitm ? (is_tri ? tny : d0y * inv_d0) : 0.0f;
+  f.nz = hitm ? (is_tri ? tnz : d0z * inv_d0) : 0.0f;
+  int mid = is_tri ? tmid : smid;
+  // checkerboard override: square parity with C truncation (:1101-1111),
+  // trunc(s/2)*2 == s on the exact small integer s
+  const float fx = truncf((f.px - s.board_x + s.board_half) * s.inv_sq);
+  const float fz = truncf((f.pz - s.board_z + s.board_half) * s.inv_sq);
+  const float s_par = fx + fz;
+  const bool parity_even = truncf(s_par * 0.5f) * 2.0f == s_par;
+  if (is_tri && tchk > 0.5f) mid = parity_even ? s.white_id : s.black_id;
+  f.mid = mid;
+  return f;
+}
+
+// ---- secondary directions (render_pallas.py::secondary_dirs) --------------
+
+struct Dirs {
+  float rx, ry, rz, tx, ty, tz;
+};
+
+// Reflected and transmitted (Snell, TIR-guarded) unit-scale directions.
+// Without a transmitting material the Snell branch is skipped and the
+// transmitted direction is zero (the chain never takes it).
+template <bool WANT_TRANS>
+__device__ __forceinline__ Dirs secondary_dirs(const Ray& r, const Surf& f,
+                                               float rho) {
+  Dirs d;
+  const float cosi = r.ux * f.nx + r.uy * f.ny + r.uz * f.nz;
+  d.rx = r.ux - 2.0f * cosi * f.nx;
+  d.ry = r.uy - 2.0f * cosi * f.ny;
+  d.rz = r.uz - 2.0f * cosi * f.nz;
+  if constexpr (!WANT_TRANS) {
+    d.tx = d.ty = d.tz = 0.0f;
+    return d;
+  }
+  const float modulus = 1.0f - rho * rho * (1.0f - cosi * cosi);
+  const bool mod_ok = modulus > 0.0f;
+  const float mod_f = mod_ok ? 1.0f : 0.0f;
+  const float cosr = mod_ok ? sqrtf(modulus) : 0.0f;
+  const float coef = cosr + rho * cosi;
+  d.tx = (rho * r.ux - coef * f.nx) * mod_f;
+  d.ty = (rho * r.uy - coef * f.ny) * mod_f;
+  d.tz = (rho * r.uz - coef * f.nz) * mod_f;
+  return d;
+}
+
+// ---- shading (render_pallas.py::shade) ------------------------------------
+
+// Per-light shadow ray plus Phong accumulation (MySdlApplication.cpp
+// :1213-1228) into col, weighted by the throughput thr.  ALL_OPAQUE (no
+// transparent material) selects the any-hit shadow sweep; otherwise the
+// nearest occluder's transparency flag decides.
+template <bool ALL_OPAQUE>
+__device__ __forceinline__ void shade(const Scene& s, const Surf& f, int bi,
+                                      bool hitm, const Ray& r, const Dirs& d,
+                                      const float* mt, const float thr[3],
+                                      float col[3]) {
+  for (int li = 0; li < s.nl; ++li) {
+    const float* L = s.light + li * LIGHT_COLS;
+    const float svx = L[0] - f.px, svy = L[1] - f.py, svz = L[2] - f.pz;
+    const Ray sr = ray_setup(svx, svy, svz, hitm);
+    bool lit;
+    if constexpr (ALL_OPAQUE) {
+      lit = !occluded_any(s, f.px, f.py, f.pz, svx, svy, svz, bi, sr);
+    } else {
+      float sd, transp;
+      int sbi;
+      intersect_closest<true>(s, f.px, f.py, f.pz, svx, svy, svz, bi, sr,
+                              &sd, &sbi, &transp);
+      lit = sd >= BIG || transp > 0.5f;
+    }
+    const float d2 = svx * svx + svy * svy + svz * svz;
+    const float att = s.atten / (s.atten + d2);
+    const float inv_sl = rsqrtf(d2 > 0.0f ? d2 : 1.0f);
+    const float ndots = fabsf(f.nx * svx + f.ny * svy + f.nz * svz) * inv_sl;
+    const float udotr = fabsf(r.ux * d.rx + r.uy * d.ry + r.uz * d.rz);
+    const float w = (lit && hitm) ? att : 0.0f;
+    col[0] += thr[0] * w * (mt[0] + ndots * mt[3] + udotr * mt[6]) * L[3];
+    col[1] += thr[1] * w * (mt[1] + ndots * mt[4] + udotr * mt[7]) * L[4];
+    col[2] += thr[2] * w * (mt[2] + ndots * mt[5] + udotr * mt[8]) * L[5];
+  }
+}
+
+// One bounce node shared by both kernels: closest hit of ray (o, v), and on
+// a hit its surface, material row and secondary directions, with the node's
+// own shading added to col.  Returns false on a miss, whose contribution
+// (and whole subtree's) is exactly zero.
+template <bool WANT_TRANS>
+__device__ __forceinline__ bool trace_node(const Scene& s, float ox, float oy,
+                                           float oz, float vx, float vy,
+                                           float vz, int excl,
+                                           const float thr[3], float col[3],
+                                           Surf* f, int* bi, const float** mt,
+                                           Dirs* d) {
+  const Ray r = ray_setup(vx, vy, vz, true);
+  float bd;
+  intersect_closest<false>(s, ox, oy, oz, vx, vy, vz, excl, r, &bd, bi,
+                           nullptr);
+  const bool hitm = bd < BIG;
+  if (!hitm) return false;
+  *f = hit_attrs(s, bd, *bi, hitm, ox, oy, oz, r);
+  *mt = s.mat + f->mid * MAT_COLS;
+  *d = secondary_dirs<WANT_TRANS>(r, *f, (*mt)[12]);
+  shade<!WANT_TRANS>(s, *f, *bi, hitm, r, *d, *mt, thr, col);
+  return true;
+}
+
+// The signature both render kernels share.
+using RenderKernel = void (*)(const float*, Params, const float*, float*,
+                              int);
+
+// Launches `kernel` with one thread per pixel, 256 a block, and the tables
+// in dynamic shared memory (raising the 48 KB default limit when they need
+// more).  Returns the launch's cudaError_t.
+inline cudaError_t launch_render(RenderKernel kernel, const float* tables,
+                                 const Params& prm, const float* v, float* out,
+                                 int num_pixels, cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  const size_t smem = table_floats(prm) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (num_pixels + kThreads - 1) / kThreads;
+  kernel<<<blocks, kThreads, smem, stream>>>(tables, prm, v, out, num_pixels);
+  return cudaGetLastError();
+}
+
+}  // namespace rtfs

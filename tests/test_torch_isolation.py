@@ -1,0 +1,57 @@
+"""The port never imports JAX: importing every module of
+ray_tracer_fragment_shader_tpu_torch leaves jax and flax out of
+sys.modules, and the kernel wrappers hold no try/except that could turn a
+failed build or launch into a silent fallback."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import ray_tracer_fragment_shader_tpu_torch as port
+
+PORT_DIR = os.path.dirname(port.__file__)
+REPO = os.path.dirname(PORT_DIR)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ray_tracer_fragment_shader_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'ray_tracer_fragment_shader_tpu'))\n"
+        "print(len(names), bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n, bad = res.stdout.split(" ", 1)
+    assert int(n) >= 10
+    assert bad.strip() == "[]"
+
+
+def test_kernel_paths_have_no_fallback():
+    for name in ("render.py", "cuda_build.py"):
+        with open(os.path.join(PORT_DIR, "kernels", name)) as f:
+            src = f.read()
+        assert not re.search(r"^\s*(try\s*:|except\b)", src, re.M), name
+
+
+def test_chip_smoke_imports_no_jax():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        src = f.read()
+    imports = re.findall(r"^\s*(?:import|from)\s+([\w.]+)", src, re.M)
+    roots = {m.split(".")[0] for m in imports}
+    assert not roots & {"jax", "jaxlib", "flax",
+                        "ray_tracer_fragment_shader_tpu"}, roots
+
+
+def test_every_module_is_found():
+    names = {m.name for m in pkgutil.walk_packages(port.__path__,
+                                                   port.__name__ + ".")}
+    assert {"ray_tracer_fragment_shader_tpu_torch.kernels.render",
+            "ray_tracer_fragment_shader_tpu_torch.cli",
+            "ray_tracer_fragment_shader_tpu_torch.scene.flat"} <= names
