@@ -21,13 +21,35 @@ Phases (each raises on failure; the script then exits non-zero):
    (1024^2 chain, 4096^2 chain, 1024^2 tree) must match its kernel's plain
    version on the same rays within phase 2's budget; the jittered adaptive
    demo is checked for finite, non-black pixels only;
-4. each timed kernel's output against its plain version (phase 2's
+4. the fit kernels against their plain versions at 128^2, on
+   full_reflective d3, procedural_spheres n=64 d3 and glass_chain d3 (a
+   transmitting two-light chain): the packed forward (K3) within phase 2's
+   image budget, with at most that fraction of packed residuals
+   differing, and whether its image is bit-identical to the chain
+   kernel's; the adjoint (K4), fed the kernel's own image and residuals
+   (target: the unperturbed render; parameters: sphere centres + 1.5),
+   with the loss within 1e-5 relative, each gradient table within
+   max|diff| <= 1e-3 max|plain|, and two launches bit-identical;
+5. the fit path, with the launch counters zeroed just before: config 3
+   (1024^2 d3) ``fit_value_and_grad``, then 5 Adam steps of
+   ``make_fit_step_kernel`` from sphere centres + 1.5 with the loss
+   falling; config 4 through the CLI (``fit --size 512 --steps 20``) with
+   the loss falling; config 5 (2048^2 d3) ``fit_value_and_grad``.  The
+   counters must show K3 and K4 launched; config 3's and config 5's losses
+   and gradients are then held against the plain version on the same
+   inputs, as in phase 4;
+6. each timed kernel's output against its plain version (phase 2's
    budget), then CUDA-event times of the kernel and its plain version
-   (plain, kernel, kernel, plain), beside the card's name and power limit.
+   (plain, kernel, kernel, plain), beside the card's name and power limit;
+   for K3 and K4 at config 3 1024^2 d3 and config 5 2048^2 d3, and one
+   fwd+bwd step (``fit_value_and_grad``) on the host clock.  Each kernel's
+   bound is the larger of its FP32 operations over 67 TFLOP/s and its
+   bytes over 3.35 TB/s, counted on this run's inputs
+   (``utils/opcount.py``).
 
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
-every check of phases 2-4, and ``max_mismatch_frac`` the largest fraction
-of pixels over 1e-3.
+every check (for K4, over the gradient tables), and ``max_mismatch_frac``
+(forward kernels) the largest fraction of pixels over 1e-3.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -37,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,6 +69,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 FRAC_TOL = 1e-3      # per-pixel max-channel difference counted as a mismatch
 MEAN_REL_TOL = 0.01  # relative difference of the image means
+GRAD_REL_TOL = 1e-3  # max|kernel - plain| / max|plain| per gradient table
+LOSS_REL_TOL = 1e-5
 KERNEL_SOURCES = {
     "render_chain": ("ray_tracer_fragment_shader_tpu_torch/kernels/csrc/"
                      "render_chain.cu",
@@ -55,7 +80,17 @@ KERNEL_SOURCES = {
                     "render_tree.cu",
                     "ray_tracer_fragment_shader_tpu/kernels/render_pallas.py"
                     ":901"),
+    "render_packed": ("ray_tracer_fragment_shader_tpu_torch/kernels/csrc/"
+                      "render_chain.cu",
+                      "ray_tracer_fragment_shader_tpu/kernels/"
+                      "render_pallas.py:765"),
+    "adjoint_packed": ("ray_tracer_fragment_shader_tpu_torch/kernels/csrc/"
+                       "adjoint_packed.cu",
+                       "ray_tracer_fragment_shader_tpu/kernels/"
+                       "adjoint_fused.py:866"),
 }
+FIELDS = ("sph_center", "sph_radius", "light_pos", "mat_diffuse",
+          "mat_specular", "mat_ambient")
 
 
 def check(cond, msg):
@@ -97,6 +132,59 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def rel_err(got, ref):
+    """max|got - ref| / max|ref| (0 where ref is all 0 and got equals it)."""
+    scale = ref.abs().max().item()
+    diff = (got - ref).abs().max().item()
+    return diff / scale if scale > 0 else diff
+
+
+def fit_inputs(K, AF, dev, preset, dc=1.5):
+    """The adjoint's inputs on scene ``preset`` with its sphere centres moved
+    by ``dc``: the tables, rays, kernel image and residuals, target, mask and
+    keywords of ``AF.kernel_inputs``, the parameters, camera and config.
+    The target is the unperturbed scene's chain-kernel render; img and pk
+    come from the packed kernel."""
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import FitParams
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import Camera
+    scene, cam, cfg = preset
+    camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+    target = K.render_image_kernel(scene, camera, cfg, device=dev)
+    params = FitParams.from_scene(scene)
+    with torch.no_grad():
+        params.sph_center += dc
+    prep = AF.prepare_fit_inputs(camera, cfg, target, device=dev)
+    v, eye = prep["v"], prep["eye"]
+    _, tables, kw, akw = AF.kernel_inputs(params.into_scene(scene), cfg,
+                                          v.shape[0], device=dev)
+    img, pk = K.render_packed(tables, v, eye, pack=akw["pack"], **kw)
+    return dict(tables=tables, v=v, eye=eye, img=img, pk=pk, kw=kw,
+                target=prep["target"], mask=prep["mask"], akw=akw,
+                scene=scene, params=params, camera=camera, cfg=cfg)
+
+
+def hold_adjoint(AF, label, x, got):
+    """Holds ``got``, what adjoint_packed gave on the inputs ``x``, against
+    adjoint_packed_ref on the same inputs: the loss within LOSS_REL_TOL,
+    each gradient table within GRAD_REL_TOL of max|plain|.  Returns the
+    largest absolute table difference."""
+    import torch
+    ref = AF.adjoint_packed_ref(x["tables"], x["v"], x["eye"], x["img"],
+                                x["target"], x["mask"], x["pk"], **x["akw"])
+    torch.cuda.synchronize()
+    loss_rel = abs(got[0].item() - ref[0].item()) / max(abs(ref[0].item()),
+                                                        1e-30)
+    errs = [rel_err(g, r) for g, r in zip(got[1:], ref[1:])]
+    print(f"adjoint_packed {label}: loss {got[0].item():.7g} vs plain "
+          f"{ref[0].item():.7g} (rel {loss_rel:.2e}); max|diff|/max|plain| "
+          f"dsph {errs[0]:.2e} dmat {errs[1]:.2e} dlight {errs[2]:.2e} "
+          f"(tolerance {GRAD_REL_TOL})")
+    check(loss_rel <= LOSS_REL_TOL and max(errs) <= GRAD_REL_TOL,
+          f"adjoint_packed disagrees with its plain version on {label}")
+    return max((g - r).abs().max().item() for g, r in zip(got[1:], ref[1:]))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -129,7 +217,7 @@ def main():
           f"(nvcc {info['seconds']:.2f} s, built={info['built']}) "
           f"-> {os.path.relpath(info['path'], REPO)}")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line:
             print("  ptxas:", line.strip())
 
     # ---- 2. kernels against their plain versions at 128^2 ---------------
@@ -206,7 +294,7 @@ def main():
         images[label] = cli.main(["render", *args, "--out",
                                   os.path.join(OUT_DIR, fname)])
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = {k: K.LAUNCHES[k] for k in ("render_chain", "render_tree")}
     print(f"main path launches: {launches}")
     for kname, count in launches.items():
         check(count > 0, f"the main path never launched {kname}")
@@ -226,39 +314,215 @@ def main():
         del tables, v
         torch.cuda.empty_cache()
 
-    # ---- 4. times --------------------------------------------------------
+    # ---- 4. the fit kernels against their plain versions at 128^2 -------
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import (
+        FitParams, make_fit_step_kernel)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.utils import opcount
+    errs.update(render_packed=[], adjoint_packed=[])
+    fracs.update(render_packed=[])
+    fit_cases = [
+        ("full_reflective d3", lambda s: presets.full_reflective(size=s,
+                                                                 depth=3)),
+        ("procedural_spheres n64 d3",
+         lambda s: presets.procedural_spheres(n=64, size=s, depth=3)),
+        ("glass_chain d3", lambda s: presets.glass_chain(size=s, depth=3)),
+    ]
+    for label, make in fit_cases:
+        x = fit_inputs(K, AF, dev, make(n))
+        t, v, eye, kw = x["tables"], x["v"], x["eye"], x["kw"]
+        torch.cuda.synchronize()
+        img_ref, pk_ref = K.render_packed_ref(t, v, eye, pack=x["akw"]["pack"],
+                                              **kw)
+        hold("check", "render_packed", label, x["img"].reshape(n, n, 3),
+             img_ref, 0.01)
+        pk_frac = (x["pk"] != pk_ref).float().mean().item()
+        same = torch.equal(x["img"], K.render_chain(t, v, eye, **kw))
+        print(f"check render_packed {label}: {pk_frac:.5f} of packed "
+              f"residuals differ from the plain version's (budget 0.01); "
+              f"image bit-identical to render_chain: {same}")
+        check(pk_frac <= 0.01, f"render_packed residuals on {label}")
+        args = (t, v, eye, x["img"], x["target"], x["mask"], x["pk"])
+        a = AF.adjoint_packed(*args, **x["akw"])
+        b = AF.adjoint_packed(*args, **x["akw"])
+        torch.cuda.synchronize()
+        ident = all(torch.equal(p, q) for p, q in zip(a, b))
+        print(f"check adjoint_packed {label}: two launches bit-identical: "
+              f"{ident}")
+        check(ident, f"adjoint_packed is not deterministic on {label}")
+        errs["adjoint_packed"].append(hold_adjoint(AF, label, x, a))
+        del x, a, b
+    torch.cuda.empty_cache()
+
+    # ---- 5. the fit path -------------------------------------------------
+    fr3 = presets.full_reflective(size=1024, depth=3)
+    c5 = presets.procedural_spheres(n=64, size=2048, depth=3)
+    fit_runs = {}
+    K.reset_launch_counts()
+    for label, preset in (("config 3 1024^2 d3", fr3),
+                          ("config 5 2048^2 d3", c5)):
+        scene, cam, cfg = preset
+        camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+        target = K.render_image_kernel(scene, camera, cfg, device=dev)
+        params = FitParams.from_scene(scene).to(dev)
+        with torch.no_grad():
+            params.sph_center += 1.5
+        fit_runs[label] = (preset, *AF.fit_value_and_grad(
+            params, scene, camera, cfg, target, device=dev))
+        if label.startswith("config 3"):
+            step = make_fit_step_kernel(
+                scene, camera, cfg, target,
+                torch.optim.Adam([params.sph_center], lr=0.3), device=dev)
+            steps = [float(step(params)) for _ in range(5)]
+            print(f"fit {label}: 5 Adam steps of make_fit_step_kernel, "
+                  f"loss {' -> '.join(f'{x:.6g}' for x in steps)}")
+            check(steps[-1] < steps[0], f"{label}: the loss did not fall")
+    fit_dir = os.path.join(OUT_DIR, "fit_512")
+    # --lr 0.1: at the CLI's default geometry rate of 0.5 this recipe's
+    # loss rises after a few steps, in the JAX package's CLI as in the port
+    _, history = cli.main(["fit", "--size", "512", "--steps", "20",
+                           "--lr", "0.1", "--out-dir", fit_dir])
+    torch.cuda.synchronize()
+    fit_launches = {k: K.LAUNCHES[k]
+                    for k in ("render_packed", "adjoint_packed")}
+    print(f"fit path launches: {fit_launches}")
+    for kname, count in fit_launches.items():
+        check(count > 0, f"the fit path never launched {kname}")
+    launches.update(fit_launches)
+    check(history[-1] < history[0] and all(map(math.isfinite, history)),
+          f"CLI fit at 512^2: the loss did not fall ({history})")
+    print(f"fit config 4 512^2 through the CLI: loss {history[0]:.6g} -> "
+          f"{history[-1]:.6g} in 20 steps; files "
+          f"{sorted(os.listdir(fit_dir))}")
+    for label, (preset, loss, grads) in fit_runs.items():
+        for f in FIELDS:
+            check(bool(torch.isfinite(grads[f]).all()),
+                  f"{label}: non-finite {f} gradient")
+        # the same inputs through the plain version: the packed kernel's
+        # own image and residuals of the moved scene (it is deterministic)
+        x = fit_inputs(K, AF, dev, preset)
+        sq, dsph, dmat, dlight = out = AF.adjoint_packed(
+            x["tables"], x["v"], x["eye"], x["img"], x["target"], x["mask"],
+            x["pk"], **x["akw"])
+        ns, m = (x["tables"][k].shape[0] for k in ("sph", "mat"))
+        nl = x["akw"]["nl"]
+        g_c = AF.grads_to_fitparams(x["params"], preset[0], dict(
+            sph_center=dsph[:ns, 0:3], sph_radius=dsph[:ns, 3],
+            mat_ambient=dmat[:m, 0:3], mat_diffuse=dmat[:m, 3:6],
+            mat_specular=dmat[:m, 6:9], light_pos=dlight[:nl, 0:3]))
+        same = (torch.equal(sq / (x["v"].shape[0] * 3), loss)
+                and all(torch.equal(g_c[f], grads[f]) for f in FIELDS))
+        print(f"fit {label}: loss {loss.item():.7g}; fit_value_and_grad "
+              f"equals a second packed+adjoint launch bit for bit: {same}")
+        check(same, f"{label}: fit_value_and_grad is not reproducible")
+        errs["adjoint_packed"].append(hold_adjoint(AF, label, x, out))
+        del x, out, dsph, dmat, dlight
+        torch.cuda.empty_cache()
+    del fit_runs
+    torch.cuda.empty_cache()
+
+    # ---- 6. times --------------------------------------------------------
     timed = {
         "render_chain": ("full_reflective 1024^2 d3",
                          rays(*presets.full_reflective(size=1024, depth=3))),
         "render_tree": ("fractional_glass 1024^2 d3",
                         rays(*presets.fractional_glass(size=1024, depth=3))),
     }
-    times = {}
+    times, bounds = {}, {}
+
+    def four_times(pk_fn, pp_fn, reps_k, reps_p):
+        """(kernel ms, plain ms, runs) timed plain, kernel, kernel, plain."""
+        t_p1 = time_ms(pp_fn, reps_p)
+        t_k1 = time_ms(pk_fn, reps_k)
+        t_k2 = time_ms(pk_fn, reps_k)
+        t_p2 = time_ms(pp_fn, reps_p)
+        return (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2, (t_k1, t_k2, t_p1, t_p2)
+
     for kname, (label, (tables, v, eye, kw)) in timed.items():
         kern, plain = wrappers[kname]
         hold("timed", kname, label,
              kern(tables, v, eye, **kw).reshape(1024, 1024, 3),
              plain(tables, v, eye, **kw), 0.01)
-        pk = lambda: kern(tables, v, eye, **kw)
-        pp = lambda: plain(tables, v, eye, **kw)
-        t_p1 = time_ms(pp, 3)
-        t_k1 = time_ms(pk, 20)
-        t_k2 = time_ms(pk, 20)
-        t_p2 = time_ms(pp, 3)
-        tk, tp = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+        tk, tp, runs = four_times(lambda: kern(tables, v, eye, **kw),
+                                  lambda: plain(tables, v, eye, **kw), 20, 3)
+        work = opcount.forward_work(tables, v, eye,
+                                    tree=kname == "render_tree", **kw)
+        bounds[kname] = opcount.bound_ms(work["ops"], work["bytes"])
         P = v.shape[0]
         times[kname] = (tk, tp)
         print(f"time {kname:12s} {label}: kernel {tk:.4f} ms "
-              f"({t_k1:.4f}, {t_k2:.4f}) = {P / tk / 1e3:.1f} M rays/s; "
-              f"plain {tp:.2f} ms ({t_p1:.2f}, {t_p2:.2f}) = "
-              f"{P / tp / 1e3:.2f} M rays/s; speed-up {tp / tk:.1f}x "
-              f"[{card}]")
+              f"({runs[0]:.4f}, {runs[1]:.4f}) = {P / tk / 1e3:.1f} M rays/s; "
+              f"plain {tp:.2f} ms ({runs[2]:.2f}, {runs[3]:.2f}) = "
+              f"{P / tp / 1e3:.2f} M rays/s; speed-up {tp / tk:.1f}x; "
+              f"bound {bounds[kname][0]:.5f} ms ({bounds[kname][1]}: "
+              f"{work['ops']:.4g} FP32 ops, {work['bytes']:.4g} B) [{card}]")
 
-    kernels = [dict(name=k, route="cuda", source=KERNEL_SOURCES[k][0],
-                    replaces=KERNEL_SOURCES[k][1], launches=launches[k],
-                    max_abs_err=max(errs[k]),
-                    max_mismatch_frac=max(fracs[k]), ms=times[k][0],
-                    plain_ms=times[k][1]) for k in wrappers]
+    for label, preset in (("config 3 1024^2 d3", fr3),
+                          ("config 5 2048^2 d3", c5)):
+        x = fit_inputs(K, AF, dev, preset)
+        t, v, eye, kw, akw = x["tables"], x["v"], x["eye"], x["kw"], x["akw"]
+        args = (t, v, eye, x["img"], x["target"], x["mask"], x["pk"])
+        tk3, tp3, r3 = four_times(
+            lambda: K.render_packed(t, v, eye, pack=akw["pack"], **kw),
+            lambda: K.render_packed_ref(t, v, eye, pack=akw["pack"], **kw),
+            20, 2)
+        tk4, tp4, r4 = four_times(lambda: AF.adjoint_packed(*args, **akw),
+                                  lambda: AF.adjoint_packed_ref(*args, **akw),
+                                  20, 2)
+        w3 = opcount.forward_work(t, v, eye, packed=True, **kw)
+        w4 = opcount.adjoint_work(t, x["img"], x["target"], x["mask"],
+                                  x["pk"], pack=akw["pack"], nl=akw["nl"],
+                                  depth=akw["depth"],
+                                  want_trans=akw["want_trans"])
+        b3 = opcount.bound_ms(w3["ops"], w3["bytes"])
+        b4 = opcount.bound_ms(w4["ops"], w4["bytes"])
+        params = x["params"].to(dev)
+        prep = AF.prepare_fit_inputs(x["camera"], x["cfg"], x["target"],
+                                     device=dev)
+
+        def step():
+            return AF.fit_value_and_grad(params, x["scene"], x["camera"],
+                                         x["cfg"], x["target"], prep=prep,
+                                         device=dev)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        t_step = (time.perf_counter() - t0) / 10 * 1e3
+        P = v.shape[0]
+        print(f"time render_packed   {label}: kernel {tk3:.4f} ms "
+              f"({r3[0]:.4f}, {r3[1]:.4f}); plain {tp3:.2f} ms ({r3[2]:.2f}, "
+              f"{r3[3]:.2f}); bound {b3[0]:.5f} ms ({b3[1]}: "
+              f"{w3['ops']:.4g} FP32 ops, {w3['bytes']:.4g} B) [{card}]")
+        print(f"time adjoint_packed  {label}: kernel {tk4:.4f} ms "
+              f"({r4[0]:.4f}, {r4[1]:.4f}); plain {tp4:.2f} ms ({r4[2]:.2f}, "
+              f"{r4[3]:.2f}); bound {b4[0]:.5f} ms ({b4[1]}: "
+              f"{w4['ops']:.4g} FP32 ops, {w4['bytes']:.4g} B; "
+              f"{w4['live_pixels']} pixels with a cotangent, "
+              f"{w4['hit_levels']} hit levels) [{card}]")
+        print(f"time fwd+bwd step    {label}: fit_value_and_grad "
+              f"{t_step:.4f} ms on the host clock = {P / t_step / 1e3:.1f} M "
+              f"rays/s; K3+K4 {tk3 + tk4:.4f} ms = "
+              f"{P / (tk3 + tk4) / 1e3:.1f} M rays/s [{card}]")
+        if label.startswith("config 3"):
+            times["render_packed"] = (tk3, tp3)
+            times["adjoint_packed"] = (tk4, tp4)
+            bounds["render_packed"], bounds["adjoint_packed"] = b3, b4
+        del x, args, prep
+        torch.cuda.empty_cache()
+
+    kernels = []
+    for k in KERNEL_SOURCES:
+        kernels.append(dict(
+            name=k, route="cuda", source=KERNEL_SOURCES[k][0],
+            replaces=KERNEL_SOURCES[k][1], launches=launches[k],
+            max_abs_err=max(errs[k]), ms=times[k][0], plain_ms=times[k][1],
+            bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=None))
+        if k in fracs:
+            kernels[-1]["max_mismatch_frac"] = max(fracs[k])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,21 +6,27 @@ object types (a-f) and board coordinates (``initScene2``,
 Hw4/MySdlApplication.cpp:1430-1493), then a 500x500 SDL/OpenGL window
 repainting the ray trace every frame (``onExecute``/``onRender``,
 ``:1631-1659``).  Here ``interactive`` replicates the menu and renders to
-an image file, and ``render`` renders a named preset.  Both render through
-``render_image_kernel``: on the GPU, the CUDA kernels; with ``--cpu``,
-their plain PyTorch versions.  Without ``--cpu`` and without a GPU they
-raise.
+an image file, ``render`` renders a named preset, and ``fit`` runs the
+differentiable-fit workload (BASELINE config 4).  All run through the
+kernels: on the GPU, the CUDA kernels; with ``--cpu``, their plain PyTorch
+versions.  Without ``--cpu`` and without a GPU they raise.
 
 Usage:
   python -m ray_tracer_fragment_shader_tpu_torch.cli render \
       --preset reference_demo --size 256 --out demo.png
   python -m ray_tracer_fragment_shader_tpu_torch.cli interactive --out scene.png
+  python -m ray_tracer_fragment_shader_tpu_torch.cli fit --steps 100 \
+      --out-dir fit_out
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import time
+
+import numpy as np
 
 import torch
 
@@ -160,8 +166,61 @@ def cmd_interactive(args):
     return _render_and_write(scene, CameraConfig(), cfg, args.out, device)
 
 
+def cmd_fit(args):
+    """Fits sphere centres and radii and the light position of
+    ``fit_target`` to its own render, from a seeded perturbation (the JAX
+    CLI's recipe), through ``make_fit_step_kernel``.  Returns (params,
+    loss history).  Only ``--views 1``: the multi-view recipe waits for
+    diff/multiview.py (ROADMAP.md queue 1 item 8)."""
+    from .diff.fit import FitParams, fit
+    from .io.image import write_image
+    from .kernels.render import render_image_kernel
+    from .ops.rays import Camera
+    from .scene import presets
+    from .utils.checkpoint import save_checkpoint
+    if args.views > 1:
+        raise NotImplementedError("--views > 1 needs diff/multiview.py "
+                                  "(ROADMAP.md queue 1 item 8)")
+    device = _device(args)
+    scene, camcfg, cfg = presets.fit_target(size=args.size or 128)
+    camera = Camera.from_config(camcfg, cfg.width, cfg.height, device=device)
+    target = render_image_kernel(scene, camera, cfg, device=device)
+
+    init = FitParams.from_scene(scene)
+    rng = np.random.RandomState(args.seed)
+    nv = int(scene.sph_valid.sum())
+    dc = np.zeros((scene.num_spheres, 3), np.float32)
+    dc[:nv] = rng.uniform(-8, 8, (nv, 3))
+    dr = (1 + rng.uniform(-0.15, 0.15, scene.num_spheres)).astype(np.float32)
+    dl = rng.uniform(-20, 20, (scene.num_lights, 3)).astype(np.float32)
+    with torch.no_grad():
+        init.sph_center += torch.from_numpy(dc)
+        init.sph_radius *= torch.from_numpy(dr)
+        init.light_pos += torch.from_numpy(dl)
+
+    params, history = fit(scene, camera, cfg, target, steps=args.steps,
+                          learning_rate=args.lr, params=init,
+                          log_every=max(args.steps // 10, 1), device=device)
+    print(f"loss: {history[0]:.6g} -> {history[-1]:.6g}")
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        write_image(os.path.join(args.out_dir, "target.png"),
+                    target.cpu().numpy())
+        with torch.no_grad():
+            final = render_image_kernel(params.into_scene(scene.to(device)),
+                                        camera, cfg, device=device)
+        write_image(os.path.join(args.out_dir, "fitted.png"),
+                    final.cpu().numpy())
+        save_checkpoint(os.path.join(args.out_dir, "params.npz"), params)
+        with open(os.path.join(args.out_dir, "history.json"), "w") as f:
+            json.dump(history, f)
+        print(f"wrote target/fitted/params/history to {args.out_dir}")
+    return params, history
+
+
 def main(argv=None):
-    """Runs one subcommand; returns the (last) rendered [H,W,3] image."""
+    """Runs one subcommand; returns its result: the (last) rendered [H,W,3]
+    image, or for ``fit`` (params, loss history)."""
     parser = argparse.ArgumentParser(prog="ray_tracer_fragment_shader_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -180,6 +239,15 @@ def main(argv=None):
                        help="build a scene via the reference's stdin menu")
     _add_common(p)
     p.set_defaults(fn=cmd_interactive)
+
+    p = sub.add_parser("fit", help="differentiable fit workload")
+    _add_common(p)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=0.5)
+    p.add_argument("--views", type=int, default=1,
+                   help="only 1: the multi-view recipe is not ported yet")
+    p.add_argument("--out-dir", default=None)
+    p.set_defaults(fn=cmd_fit)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,0 +1,184 @@
+"""Fixed-topology replay of the bounce chain, in plain PyTorch — the
+counterpart of the JAX package's ``kernels/adjoint.py`` (``_node_math``,
+``replay_render``), chain only.
+
+The forward kernel's per-level residuals — hit primitive id, resolved
+material id, per-light lit flag — pin the discrete topology (closest-hit
+winners, shadow occlusion, checker parity, branch selection).  Given them,
+the radiance is a small closed-form function of the scene parameters, which
+``replay_chain`` recomputes with no intersection sweeps.  Differentiated by
+``torch.autograd`` it gives the fixed-hit-topology gradient: the plain
+version of the hand-written adjoint kernel (csrc/adjoint_packed.cu), with
+which it shares no code.
+
+Rows are gathered by id (``_take``), not by [P, N] one-hot products, so a
+2048² frame of a 66-primitive scene fits in memory.  The bounce tree's
+replay (``replay_render_tree``) and ``render_image_diff`` are not ported
+yet.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..config import RenderConfig
+from ..ops.rays import Camera, primary_rays, screen_points
+from ..scene.flat import FlatScene, tri_derived
+from ..utils.jmath import safe_div, safe_sqrt
+from .render import compact_scene
+
+
+def _take(table: torch.Tensor, idx: torch.Tensor,
+          sel: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` where ``sel``, else 0 (rows [P, ...]); ``idx`` is an
+    f32 id plane, clamped so unselected lanes read row 0."""
+    if table.shape[0] == 0:
+        return table.new_zeros((idx.shape[0], *table.shape[1:]))
+    rows = table[idx.clamp(0, table.shape[0] - 1).long()]
+    mask = sel.reshape(-1, *([1] * (table.dim() - 1)))
+    return torch.where(mask, rows, torch.zeros_like(rows))
+
+
+def scene_geom(scene: FlatScene,
+               config: RenderConfig) -> Dict[str, torch.Tensor]:
+    """The replay's inputs from a (compacted) scene: triangle planes and the
+    parameter tables, with the material's transmit flag as
+    ``_node_math`` in the JAX package derives it."""
+    der = tri_derived(scene.tri_v0, scene.tri_v1, scene.tri_v2,
+                      config.small_number)
+    T = scene.mat_transparency
+    t_any = torch.any(T != 0.0, -1)
+    t_len = torch.sqrt(torch.sum(T * T, -1))
+    return dict(tri_n=der["n"], tri_nv0=torch.sum(der["n"] * scene.tri_v0, -1),
+                sph_center=scene.sph_center, sph_radius=scene.sph_radius,
+                mat_ambient=scene.mat_ambient, mat_diffuse=scene.mat_diffuse,
+                mat_specular=scene.mat_specular, mat_transparency=T,
+                mat_refraction=scene.mat_refraction,
+                take_t=t_any & (t_len > config.small_number),
+                light_pos=scene.light_pos, light_color=scene.light_color)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise a.b of [P,3] rows, summed x, y, z in that order: the order
+    of the adjoint kernel (csrc/adjoint_ops.cuh), where ``torch.sum``'s
+    order is the library's to choose.  Along a chain of convex mirrors a
+    last-bit difference in a hit point grows from bounce to bounce."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def _node_math(geom, o, v, bik, midl, lits, atten: float):
+    """Pinned-topology math of one bounce node over [P] rays: the local
+    shading colour (throughput not included), the hit point, the secondary
+    directions, the material transparency and transmit flag, the hit mask,
+    and the unit direction and normal (adjoint.py::_node_math)."""
+    nt = geom["tri_n"].shape[0]
+    hitm = bik >= 0.0
+    is_tri = bik < nt
+    is_s = bik >= nt
+
+    vlen2 = _dot(v, v)
+    ray_ok = vlen2 > 0.0
+    vlen = safe_sqrt(vlen2, ray_ok)
+    u = v * safe_div(torch.ones_like(vlen), vlen, ray_ok)[:, None]
+
+    # hit distance for the known primitive
+    n_sel = _take(geom["tri_n"], bik, hitm & is_tri)
+    nv0_sel = _take(geom["tri_nv0"], bik, hitm & is_tri)
+    ndv = _dot(n_sel, v)
+    m_par = safe_div(nv0_sel - _dot(n_sel, o), ndv,
+                     torch.abs(ndv) > 0.0)
+    dist_tri = m_par * vlen
+
+    c_sel = _take(geom["sph_center"], bik - nt, is_s)
+    r_sel = _take(geom["sph_radius"], bik - nt, is_s)
+    d = c_sel - o
+    ud = _dot(u, d)
+    disc = ud * ud - _dot(d, d) + r_sel * r_sel
+    dist_sph = ud - safe_sqrt(disc, disc > 0.0)
+
+    bd = torch.where(hitm, torch.where(is_tri, dist_tri, dist_sph), 0.0)
+    p = o + bd[:, None] * u
+
+    d0 = p - c_sel
+    d0sq = _dot(d0, d0)
+    n_sph = d0 * safe_div(torch.ones_like(d0sq),
+                          safe_sqrt(d0sq, d0sq > 0.0), d0sq > 0.0)[:, None]
+    n = torch.where(is_tri[:, None], n_sel, n_sph)
+    n = torch.where(hitm[:, None], n, torch.zeros_like(n))
+
+    # material fields by the resolved id (0 on a miss, as the blend gives)
+    mi = midl.long()
+    amb, dif, spe = (geom[k][mi] for k in ("mat_ambient", "mat_diffuse",
+                                           "mat_specular"))
+    trn = geom["mat_transparency"][mi]
+    rho = geom["mat_refraction"][mi]
+    take_t = geom["take_t"][mi]
+
+    # secondary directions
+    cosi = _dot(u, n)
+    refl = u - (2.0 * cosi)[:, None] * n
+    modulus = 1.0 - rho * rho * (1.0 - cosi * cosi)
+    mod_ok = modulus > 0.0
+    cosr = safe_sqrt(modulus, mod_ok)
+    trans = rho[:, None] * u - (cosr + rho * cosi)[:, None] * n
+    trans = torch.where(mod_ok[:, None], trans, torch.zeros_like(trans))
+
+    # shading with pinned lit flags
+    local = torch.zeros_like(p)
+    udotr = torch.abs(_dot(u, refl))
+    for li in range(geom["light_pos"].shape[0]):
+        sv = geom["light_pos"][li][None, :] - p
+        d2 = _dot(sv, sv)
+        att = atten / (atten + d2)
+        inv_sl = safe_div(torch.ones_like(d2), safe_sqrt(d2, d2 > 0.0),
+                          d2 > 0.0)
+        ndots = torch.abs(_dot(n, sv)) * inv_sl
+        wgt = torch.where((lits[li] > 0.5) & hitm, att, 0.0)
+        contrib = amb + ndots[:, None] * dif + udotr[:, None] * spe
+        local = local + (wgt[:, None] * contrib
+                         * geom["light_color"][li][None, :])
+    return dict(local=local, p=p, refl=refl, trans=trans, trn=trn,
+                take_t=take_t, hitm=hitm, u=u, n=n)
+
+
+def replay_chain(geom, o, v, bi, mid, lit, *, depth: int,
+                 atten: float) -> torch.Tensor:
+    """Differentiable radiance of the bounce chain -> [P,3], from the rays
+    (o, v) [P,3] and residual planes ``bi``/``mid`` [depth+1, P] and ``lit``
+    [L, depth+1, P] (adjoint.py::replay_render's loop)."""
+    color = torch.zeros_like(v)
+    thr = torch.ones_like(v)
+    for level in range(depth + 1):
+        nm = _node_math(geom, o, v, bi[level], mid[level], lit[:, level],
+                        atten)
+        color = color + thr * nm["local"]
+        if level < depth:
+            take_t, hitm = nm["take_t"][:, None], nm["hitm"][:, None]
+            nxt = torch.where(take_t, nm["trans"], nm["refl"])
+            weight = torch.where(take_t, nm["trn"], 1.0 - nm["trn"])
+            thr = thr * torch.where(hitm, weight, torch.ones_like(weight))
+            o = nm["p"]
+            v = torch.where(hitm, nxt, torch.zeros_like(nxt))
+    return color
+
+
+def replay_render(scene: FlatScene, camera: Camera, config: RenderConfig,
+                  residuals: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Differentiable radiance replay of the bounce chain -> [H,W,3], on
+    the scene's device.  ``residuals``: ``bi`` [D+1,H,W] (hit primitive id
+    in triangles-then-spheres order, -1 = miss), ``mid`` [D+1,H,W]
+    (resolved material id), ``lit`` [L,D+1,H,W] — from the same compacted
+    scene the forward used."""
+    scene = compact_scene(scene)
+    w, h = config.width, config.height
+    depth = config.max_depth
+    o, v = primary_rays(camera, screen_points(camera, w, h))
+    P = v.shape[0]
+    color = replay_chain(
+        scene_geom(scene, config), o, v,
+        residuals["bi"].reshape(depth + 1, P),
+        residuals["mid"].reshape(depth + 1, P),
+        residuals["lit"].reshape(scene.num_lights, depth + 1, P),
+        depth=depth, atten=config.attenuation_factor)
+    return color.reshape(h, w, 3)

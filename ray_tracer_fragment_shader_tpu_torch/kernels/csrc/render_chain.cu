@@ -1,24 +1,29 @@
 // Chain forward render kernel: primary-ray directions in, RGB out, over
-// depth+1 bounce levels.
+// depth+1 bounce levels; with PACKED also one packed residual per level.
 //
 // Replaces the JAX package's kernels/render_pallas.py::_render_tile_kernel
-// (its device code: _make_tile_ops and _chain_forward).  It serves every
-// scene whose materials have all-0 or all-1 transparency: there the bounce
-// tree is a single path, and each level takes the transmitted child if the
-// material transmits, else the reflected one.
+// (its device code: _make_tile_ops and _chain_forward) and, as the PACKED
+// instantiation, render_pallas.py::_render_tile_packed_kernel (phase 1 of
+// the fit path).  It serves every scene whose materials have all-0 or all-1
+// transparency: there the bounce tree is a single path, and each level
+// takes the transmitted child if the material transmits, else the
+// reflected one.
 //
-// Bound: compute.  A pixel moves 24 bytes of device memory (12 in, 12 out)
-// against thousands of FP32 operations (one closest-hit sweep plus one
-// shadow sweep per light at every level).  The design therefore keeps the
-// scene in shared memory, one thread per pixel, and cuts work that adds
-// exactly zero: a ray that misses ends its chain, and an all-opaque scene's
-// shadow sweep stops at the first occluder.  This first version aims to be
-// right; it is not tuned.
+// Bound: compute.  A pixel moves 24 bytes of device memory (12 in, 12 out;
+// PACKED adds 4 per level) against thousands of FP32 operations (one
+// closest-hit sweep plus one shadow sweep per light at every level).  The
+// design therefore keeps the scene in shared memory, one thread per pixel,
+// and cuts work that adds exactly zero: a ray that misses ends its chain,
+// and an all-opaque scene's shadow sweep stops at the first occluder.  The
+// packed forward is the same image code, as the JAX package keeps every
+// chain forward one program shape; levels after the chain ends are still
+// stored, with the value a dead lane has there.  This first version aims
+// to be right; it is not tuned.
 #include "tile_ops.cuh"
 
 namespace rtfs {
 
-template <bool WANT_TRANS>
+template <bool WANT_TRANS, bool PACKED>
 __global__ void __launch_bounds__(256)
 render_chain_kernel(const float* __restrict__ tables, Params prm,
                     const float* __restrict__ v, float* __restrict__ out,
@@ -33,14 +38,23 @@ render_chain_kernel(const float* __restrict__ tables, Params prm,
   float thr[3] = {1.0f, 1.0f, 1.0f};
   float col[3] = {0.0f, 0.0f, 0.0f};
   int excl = -1;
-  for (int level = 0; level <= prm.depth; ++level) {
+  int level = 0;
+  for (; level <= prm.depth; ++level) {
     Surf f;
     int bi;
     const float* mt;
     Dirs d;
+    unsigned lit_bits;
     if (!trace_node<WANT_TRANS>(s, ox, oy, oz, vx, vy, vz, excl, thr, col,
-                                &f, &bi, &mt, &d))
+                                &f, &bi, &mt, &d, &lit_bits))
       break;  // a miss adds zero from here on
+    if constexpr (PACKED) {
+      // (bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid: exact f32 integers
+      // (render_pallas.py:690-695)
+      prm.pk[static_cast<size_t>(level) * num_pixels + p] =
+          static_cast<float>(bi + 1) + static_cast<float>(f.mid) * prm.bw_bi +
+          static_cast<float>(lit_bits) * (prm.bw_bi * prm.bw_mid);
+    }
     // child ray selection (chain-exact): transmitted if traced, else
     // reflected if the material is not fully transparent
     const bool take_t = mt[13] > 0.5f;
@@ -52,9 +66,21 @@ render_chain_kernel(const float* __restrict__ tables, Params prm,
     thr[2] *= take_t ? mt[11] : 1.0f - mt[11];
     const bool branch =
         take_t ? (vx * vx + vy * vy + vz * vz > 0.0f) : (mt[14] > 0.5f);
-    if (!branch) break;
+    if (!branch) {
+      ++level;  // this level is stored; the next ones are dead
+      break;
+    }
     ox = f.px; oy = f.py; oz = f.pz;
     excl = bi;
+  }
+  if constexpr (PACKED) {
+    // the miss level and every later one: bi + 1 = 0, mid = 0 (the JAX
+    // blend's miss values) and every lit bit set (a dead lane's shadow
+    // sweep finds no occluder)
+    const float dead = static_cast<float>((1u << prm.nl) - 1u) *
+                       (prm.bw_bi * prm.bw_mid);
+    for (; level <= prm.depth; ++level)
+      prm.pk[static_cast<size_t>(level) * num_pixels + p] = dead;
   }
   out[3 * p] = col[0];
   out[3 * p + 1] = col[1];
@@ -63,9 +89,10 @@ render_chain_kernel(const float* __restrict__ tables, Params prm,
 
 }  // namespace rtfs
 
-// C entry (bound with ctypes from kernels/render.py).  `tables` is the flat
-// misc | sph | tri | mat | light buffer; `v` and `out` are [num_pixels, 3]
-// f32.  Launches on `stream` and returns the launch's cudaError_t.
+// C entries (bound with ctypes from kernels/render.py).  `tables` is the
+// flat misc | sph | tri | mat | light buffer; `v` and `out` are
+// [num_pixels, 3] f32.  Each launches on `stream` and returns the launch's
+// cudaError_t.
 extern "C" int rtfs_render_chain(const float* tables, int ns, int nt, int m,
                                  int nl, const float* v, float* out,
                                  int num_pixels, float eye_x, float eye_y,
@@ -75,8 +102,26 @@ extern "C" int rtfs_render_chain(const float* tables, int ns, int nt, int m,
   rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id,
                    small, atten, eye_x, eye_y, eye_z};
   return static_cast<int>(rtfs::launch_render(
-      want_trans ? rtfs::render_chain_kernel<true>
-                 : rtfs::render_chain_kernel<false>,
+      want_trans ? rtfs::render_chain_kernel<true, false>
+                 : rtfs::render_chain_kernel<false, false>,
+      tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+}
+
+// The packed forward: as rtfs_render_chain, plus `pk` [depth+1, num_pixels]
+// f32 with the field widths of kernels/render.py::pack_widths.
+extern "C" int rtfs_render_packed(const float* tables, int ns, int nt, int m,
+                                  int nl, const float* v, float* out,
+                                  int num_pixels, float eye_x, float eye_y,
+                                  float eye_z, int depth, float small,
+                                  float atten, int white_id, int black_id,
+                                  int want_trans, float* pk, float bw_bi,
+                                  float bw_mid, void* stream) {
+  if (nl < 0 || nl > 24) return static_cast<int>(cudaErrorInvalidValue);
+  rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id,
+                   small, atten, eye_x, eye_y, eye_z, pk, bw_bi, bw_mid};
+  return static_cast<int>(rtfs::launch_render(
+      want_trans ? rtfs::render_chain_kernel<true, true>
+                 : rtfs::render_chain_kernel<false, true>,
       tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
 }
 

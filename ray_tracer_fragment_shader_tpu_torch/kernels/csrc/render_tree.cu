@@ -49,8 +49,10 @@ render_tree_kernel(const float* __restrict__ tables, Params prm,
     int bi;
     const float* mt;
     Dirs d;
+    unsigned lit_bits;
     if (!trace_node<WANT_TRANS>(s, nd.ox, nd.oy, nd.oz, nd.vx, nd.vy, nd.vz,
-                                nd.excl, nd.thr, col, &f, &bi, &mt, &d))
+                                nd.excl, nd.thr, col, &f, &bi, &mt, &d,
+                                &lit_bits))
       continue;  // a miss zeroes both children
     if (nd.level == prm.depth) continue;
     // gates of the transmitted (T != 0 and |T| > SMALL, :1238) and

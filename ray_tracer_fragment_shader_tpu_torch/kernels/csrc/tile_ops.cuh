@@ -32,13 +32,17 @@ constexpr int TRI_INV_DEN = 21;
 constexpr float BIG = 3.0e38f;
 
 // Launch-time scalars.  The flat table buffer is
-// misc(16) | sph(ns*8) | tri(nt*24) | mat(m*20) | light(nl*8).
+// misc(16) | sph(ns*8) | tri(nt*24) | mat(m*20) | light(nl*8).  The packed
+// forward (render_chain.cu, PACKED) also writes pk[depth+1][num_pixels]
+// with the field widths bw_bi, bw_mid; the other kernels leave them unset.
 struct Params {
   int ns, nt, m, nl;
   int depth;
   int white_id, black_id;
   float small, atten;
   float eye_x, eye_y, eye_z;
+  float* pk;
+  float bw_bi, bw_mid;
 };
 
 struct Scene {
@@ -288,12 +292,14 @@ __device__ __forceinline__ Dirs secondary_dirs(const Ray& r, const Surf& f,
 // Per-light shadow ray plus Phong accumulation (MySdlApplication.cpp
 // :1213-1228) into col, weighted by the throughput thr.  ALL_OPAQUE (no
 // transparent material) selects the any-hit shadow sweep; otherwise the
-// nearest occluder's transparency flag decides.
+// nearest occluder's transparency flag decides.  Returns the shadow sweeps'
+// booleans as bits (bit li: light li lit), before the hitm mask.
 template <bool ALL_OPAQUE>
-__device__ __forceinline__ void shade(const Scene& s, const Surf& f, int bi,
-                                      bool hitm, const Ray& r, const Dirs& d,
-                                      const float* mt, const float thr[3],
-                                      float col[3]) {
+__device__ __forceinline__ unsigned shade(const Scene& s, const Surf& f,
+                                          int bi, bool hitm, const Ray& r,
+                                          const Dirs& d, const float* mt,
+                                          const float thr[3], float col[3]) {
+  unsigned lit_bits = 0u;
   for (int li = 0; li < s.nl; ++li) {
     const float* L = s.light + li * LIGHT_COLS;
     const float svx = L[0] - f.px, svy = L[1] - f.py, svz = L[2] - f.pz;
@@ -308,6 +314,7 @@ __device__ __forceinline__ void shade(const Scene& s, const Surf& f, int bi,
                               &sd, &sbi, &transp);
       lit = sd >= BIG || transp > 0.5f;
     }
+    if (lit) lit_bits |= 1u << li;
     const float d2 = svx * svx + svy * svy + svz * svz;
     const float att = s.atten / (s.atten + d2);
     const float inv_sl = rsqrtf(d2 > 0.0f ? d2 : 1.0f);
@@ -318,19 +325,20 @@ __device__ __forceinline__ void shade(const Scene& s, const Surf& f, int bi,
     col[1] += thr[1] * w * (mt[1] + ndots * mt[4] + udotr * mt[7]) * L[4];
     col[2] += thr[2] * w * (mt[2] + ndots * mt[5] + udotr * mt[8]) * L[5];
   }
+  return lit_bits;
 }
 
 // One bounce node shared by both kernels: closest hit of ray (o, v), and on
 // a hit its surface, material row and secondary directions, with the node's
-// own shading added to col.  Returns false on a miss, whose contribution
-// (and whole subtree's) is exactly zero.
+// own shading added to col and its lit bits in *lit_bits.  Returns false on
+// a miss, whose contribution (and whole subtree's) is exactly zero.
 template <bool WANT_TRANS>
 __device__ __forceinline__ bool trace_node(const Scene& s, float ox, float oy,
                                            float oz, float vx, float vy,
                                            float vz, int excl,
                                            const float thr[3], float col[3],
                                            Surf* f, int* bi, const float** mt,
-                                           Dirs* d) {
+                                           Dirs* d, unsigned* lit_bits) {
   const Ray r = ray_setup(vx, vy, vz, true);
   float bd;
   intersect_closest<false>(s, ox, oy, oz, vx, vy, vz, excl, r, &bd, bi,
@@ -340,7 +348,7 @@ __device__ __forceinline__ bool trace_node(const Scene& s, float ox, float oy,
   *f = hit_attrs(s, bd, *bi, hitm, ox, oy, oz, r);
   *mt = s.mat + f->mid * MAT_COLS;
   *d = secondary_dirs<WANT_TRANS>(r, *f, (*mt)[12]);
-  shade<!WANT_TRANS>(s, *f, *bi, hitm, r, *d, *mt, thr, col);
+  *lit_bits = shade<!WANT_TRANS>(s, *f, *bi, hitm, r, *d, *mt, thr, col);
   return true;
 }
 

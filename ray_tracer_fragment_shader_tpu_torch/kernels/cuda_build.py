@@ -4,9 +4,10 @@ ctypes (no PyTorch headers, so a build takes seconds).
 The library is built at first use from the sources under ``csrc/`` into
 ``ray_tracer_fragment_shader_tpu_torch/_build/`` (listed in .gitignore),
 named by a hash of the sources and flags: a changed source builds anew, an
-unchanged one loads the existing file.  The compiler writes to a temporary
-file that is renamed into place, so two processes building at once cannot
-leave a torn library behind.
+unchanged one loads the existing file.  Each ``.cu`` compiles in its own
+nvcc process, all started together, and one more nvcc links the objects.
+The linker writes to a temporary file that is renamed into place, so two
+processes building at once cannot leave a torn library behind.
 """
 from __future__ import annotations
 
@@ -18,22 +19,35 @@ import threading
 import time
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("tile_ops.cuh", "render_chain.cu", "render_tree.cu")
+SOURCES = ("tile_ops.cuh", "render_chain.cu", "render_tree.cu",
+           "adjoint_ops.cuh", "adjoint_packed.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags of one source only: the adjoint rounds as its plain version does,
+#: with no fused multiply-add (csrc/adjoint_ops.cuh)
+SOURCE_FLAGS = {"adjoint_packed.cu": ("-fmad=false",)}
 
-_ENTRY_ARGS = (
-    [ctypes.c_void_p]                      # tables
-    + [ctypes.c_int] * 4                   # ns nt m nl
-    + [ctypes.c_void_p, ctypes.c_void_p]   # v out
-    + [ctypes.c_int]                       # num_pixels
-    + [ctypes.c_float] * 3                 # eye
-    + [ctypes.c_int]                       # depth
-    + [ctypes.c_float] * 2                 # small atten
-    + [ctypes.c_int] * 3                   # white_id black_id want_trans
-    + [ctypes.c_void_p])                   # stream
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_RENDER_ARGS = ([_P] + [_I] * 4        # tables; ns nt m nl
+                + [_P, _P, _I]         # v out num_pixels
+                + [_F] * 3 + [_I]      # eye; depth
+                + [_F] * 2             # small atten
+                + [_I] * 3)            # white_id black_id want_trans
+#: argtypes of each C entry (the stream pointer comes last in each)
+_ENTRIES = {
+    "rtfs_render_chain": _RENDER_ARGS + [_P],
+    "rtfs_render_tree": _RENDER_ARGS + [_P],
+    # + pk, bw_bi, bw_mid
+    "rtfs_render_packed": _RENDER_ARGS + [_P, _F, _F, _P],
+    # tables; ns nt m nl; v img target mask pk; num_pixels; eye; depth;
+    # atten g_scale bw_bi bw_mid; want_trans; partial num_blocks; stream
+    "rtfs_adjoint_packed": ([_P] + [_I] * 4 + [_P] * 5 + [_I] + [_F] * 3
+                            + [_I] + [_F] * 4 + [_I] + [_P, _I, _P]),
+    # partial num_blocks num_cols out stream
+    "rtfs_adjoint_reduce": [_P, _I, _I, _P, _P],
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -53,27 +67,41 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"librtfs_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> str:
+    """Runs the commands at once; returns their joined output, or raises
+    with the first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def _build(path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC_DIR, s) for s in SOURCES if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    cus = [s for s in SOURCES if s.endswith(".cu")]
+    objs = [f"{tmp}.{s}.o" for s in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr, built=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    log = _run_all([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s, ()), "-c", "-o",
+                     o, os.path.join(CSRC_DIR, s)] for s, o in zip(cus, objs)])
+    log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+    for o in objs:
+        os.remove(o)
+    build_info.update(seconds=time.perf_counter() - t0, log=log, built=True)
     os.replace(tmp, path)
 
 
@@ -90,11 +118,19 @@ def load() -> ctypes.CDLL:
             build_info.update(seconds=0.0, log="", built=False)
         build_info["path"] = path
         lib = ctypes.CDLL(path)
-        for name in ("rtfs_render_chain", "rtfs_render_tree"):
+        for name, argtypes in _ENTRIES.items():
             fn = getattr(lib, name)
-            fn.argtypes = _ENTRY_ARGS
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.rtfs_error_string.argtypes = [ctypes.c_int]
         lib.rtfs_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, entry: str) -> None:
+    """Raises if a C entry returned a CUDA error (its launch was refused)."""
+    if rc != 0:
+        msg = lib.rtfs_error_string(rc).decode()
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")

@@ -12,7 +12,10 @@ Device side, one wrapper per kernel:
 * ``render_chain`` — the chain forward (csrc/render_chain.cu), for scenes
   whose materials are all-0 or all-1 transparent (every preset);
 * ``render_tree`` — the full bounce tree (csrc/render_tree.cu), for
-  fractional transparency.
+  fractional transparency;
+* ``render_packed`` — the chain forward plus one packed residual plane per
+  bounce level (``pack_widths``): phase 1 of the fit path
+  (kernels/adjoint_fused.py).
 
 A wrapper given CUDA tensors launches its kernel, or raises; given CPU
 tensors it runs its plain PyTorch version (``render_chain_ref``,
@@ -53,12 +56,28 @@ TREE_MAX_DEPTH = 10
 SMEM_LIMIT_BYTES = 232448
 
 #: kernel launches per wrapper, counted where each launches its kernel
-LAUNCHES: Dict[str, int] = {"render_chain": 0, "render_tree": 0}
+#: (``adjoint_packed`` lives in kernels/adjoint_fused.py)
+LAUNCHES: Dict[str, int] = {"render_chain": 0, "render_tree": 0,
+                             "render_packed": 0, "adjoint_packed": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the GPU, and raises where
+    there is none.  The port's entry points run on the card unless the
+    caller asks for the CPU (``device="cpu"``), where the kernels' plain
+    versions run."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs its kernels on the "
+                           "GPU; pass device=\"cpu\" to run their plain "
+                           "versions on the CPU")
+    return torch.device("cuda")
 
 
 # ------------------------------------------------------------------ tables
@@ -331,9 +350,12 @@ class _PlainOps:
         return rx, ry, rz, tx, ty, tz
 
     def shade(self, px, py, pz, nx, ny, nz, ux, uy, uz, rx, ry, rz, mats,
-              bi, hitm, thr, col):
+              bi, hitm, thr, col, lits=None):
         """Per-light shadow sweep + Phong accumulation
-        (MySdlApplication.cpp:1213-1228); returns the new (r, g, b)."""
+        (MySdlApplication.cpp:1213-1228); returns the new (r, g, b).  Each
+        light's shadow-sweep boolean (before the ``hitm`` mask) is appended
+        to ``lits`` when a list is given (the packed residual's lit
+        bits)."""
         col_r, col_g, col_b = col
         thr_r, thr_g, thr_b = thr
         amb = [mats[:, k] for k in range(0, 3)]
@@ -348,6 +370,8 @@ class _PlainOps:
                 sd, occ_transp = self.intersect_all(
                     px, py, pz, svx, svy, svz, bi, hitm, carry_transp=True)
                 lit = (sd >= BIG) | (occ_transp > 0.5)
+            if lits is not None:
+                lits.append(lit)
             d2 = svx * svx + svy * svy + svz * svz
             att = self.atten / (self.atten + d2)
             inv_sl = torch.rsqrt(torch.where(d2 > 0.0, d2, 1.0))
@@ -363,9 +387,10 @@ class _PlainOps:
         return col_r, col_g, col_b
 
     def node(self, ox, oy, oz, vx, vy, vz, excl, alive, thr, col,
-             want_trans):
+             want_trans, lits=None):
         """One bounce level/node: closest hit, attributes, secondary
-        directions and shading.  Returns (hitm, bi, p, mats, dirs, col)."""
+        directions and shading.  Returns (hitm, bi, p, mats, dirs, col,
+        mid); ``lits`` as in ``shade``."""
         bd, bi, ux, uy, uz = self.intersect_all(ox, oy, oz, vx, vy, vz,
                                                 excl, alive)
         hitm = (bd < BIG) & alive
@@ -375,15 +400,15 @@ class _PlainOps:
         dirs = self.secondary_dirs(ux, uy, uz, nx, ny, nz, mats[:, 12],
                                    want_trans=want_trans)
         col = self.shade(px, py, pz, nx, ny, nz, ux, uy, uz, *dirs[:3],
-                         mats, bi, hitm, thr, col)
-        return hitm, bi, (px, py, pz), mats, dirs, col
+                         mats, bi, hitm, thr, col, lits)
+        return hitm, bi, (px, py, pz), mats, dirs, col, mid
 
 
-def render_chain_ref(tables, v, eye, *, nl: int, depth: int, small: float,
-                     atten: float, checker_mats: Tuple[int, int],
-                     want_trans: bool) -> torch.Tensor:
-    """Plain PyTorch version of the chain kernel: [P,3] directions -> [P,3]
-    RGB over depth+1 levels (render_pallas.py::_chain_forward)."""
+def _chain_ref(tables, v, eye, *, nl: int, depth: int, small: float,
+               atten: float, checker_mats: Tuple[int, int], want_trans: bool,
+               pack: Optional[Tuple[float, float]] = None):
+    """The chain over depth+1 levels (render_pallas.py::_chain_forward):
+    ([P,3] RGB, [depth+1, P] packed residuals or None without ``pack``)."""
     P = v.shape[0]
     ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
                     checker_mats=checker_mats, all_opaque=not want_trans)
@@ -393,9 +418,19 @@ def render_chain_ref(tables, v, eye, *, nl: int, depth: int, small: float,
     col = (ops.full(0.0),) * 3
     excl = ops.full(-1.0)
     alive = torch.ones(P, dtype=torch.bool, device=v.device)
+    pks = []
     for _ in range(depth + 1):
-        hitm, bi, p, mats, dirs, col = ops.node(ox, oy, oz, vx, vy, vz, excl,
-                                                alive, thr, col, want_trans)
+        lits = [] if pack is not None else None
+        hitm, bi, p, mats, dirs, col, mid = ops.node(
+            ox, oy, oz, vx, vy, vz, excl, alive, thr, col, want_trans, lits)
+        if pack is not None:
+            # (bi+1) + mid*bw_bi + sum_li lit_li * bw_bi*bw_mid*2^li, every
+            # term an exact f32 integer (render_pallas.py:690-695)
+            bw_bi, bw_mid = pack
+            pk = (torch.where(hitm, bi, -1.0) + 1.0) + mid * bw_bi
+            for li, lit in enumerate(lits):
+                pk = pk + lit.float() * (bw_bi * bw_mid * float(1 << li))
+            pks.append(pk)
         rx, ry, rz, tx, ty, tz = dirs
         take_t = mats[:, 13] > 0.5
         vx = torch.where(take_t, tx, rx)
@@ -407,7 +442,23 @@ def render_chain_ref(tables, v, eye, *, nl: int, depth: int, small: float,
                              mats[:, 14] > 0.5)
         alive = hitm & branch
         (ox, oy, oz), excl = p, bi
-    return torch.stack(col, -1)
+    return torch.stack(col, -1), (torch.stack(pks) if pks else None)
+
+
+def render_chain_ref(tables, v, eye, **kw) -> torch.Tensor:
+    """Plain PyTorch version of the chain kernel: [P,3] directions -> [P,3]
+    RGB over depth+1 levels (render_pallas.py::_chain_forward).  The
+    keyword arguments are ``render_kwargs``'s."""
+    return _chain_ref(tables, v, eye, **kw)[0]
+
+
+def render_packed_ref(tables, v, eye, *, pack: Tuple[float, float], **kw):
+    """Plain PyTorch version of the packed forward: ([P,3] RGB, [depth+1, P]
+    packed residuals) — ``render_chain_ref`` plus the per-level pack of
+    render_pallas.py::_chain_forward.  Levels at and after a lane's miss
+    hold ``(2^nl - 1)*bw_bi*bw_mid``: bi + 1 = 0, mid = 0, and every lit
+    bit set (a dead lane's shadow sweep finds no occluder)."""
+    return _chain_ref(tables, v, eye, pack=pack, **kw)
 
 
 def render_tree_ref(tables, v, eye, *, nl: int, depth: int, small: float,
@@ -421,8 +472,8 @@ def render_tree_ref(tables, v, eye, *, nl: int, depth: int, small: float,
                     checker_mats=checker_mats, all_opaque=not want_trans)
 
     def node(o, d, thr, excl, alive, level, col):
-        hitm, bi, p, mats, dirs, col = ops.node(*o, *d, excl, alive, thr, col,
-                                                want_trans)
+        hitm, bi, p, mats, dirs, col, _ = ops.node(*o, *d, excl, alive, thr,
+                                                   col, want_trans)
         if level == depth:
             return col
         hit_f = hitm.float()
@@ -480,14 +531,17 @@ def _flat_tables(tables, nl: int) -> torch.Tensor:
 
 def _render(entry: str, plain, tables, v, eye, *, nl: int, depth: int,
             small: float, atten: float, checker_mats: Tuple[int, int],
-            want_trans: bool) -> torch.Tensor:
+            want_trans: bool, pack: Optional[Tuple[float, float]] = None):
     """Checks the inputs; runs ``plain`` on CPU tensors, and launches the
-    C entry ``rtfs_<entry>`` on CUDA tensors."""
+    C entry ``rtfs_<entry>`` on CUDA tensors.  With ``pack`` the entry also
+    writes the [depth+1, P] packed residuals, and (rgb, pk) is returned."""
     _check(tables, v, depth, nl)
+    kw = dict(nl=nl, depth=depth, small=small, atten=atten,
+              checker_mats=checker_mats, want_trans=want_trans)
+    if pack is not None:
+        kw["pack"] = pack
     if v.device.type == "cpu":
-        return plain(tables, v, eye, nl=nl, depth=depth, small=small,
-                     atten=atten, checker_mats=checker_mats,
-                     want_trans=want_trans)
+        return plain(tables, v, eye, **kw)
     if v.device.type != "cuda":
         raise ValueError(f"{entry}: kernels run on CUDA tensors, got "
                          f"{v.device}")
@@ -500,8 +554,12 @@ def _render(entry: str, plain, tables, v, eye, *, nl: int, depth: int,
                          f"a block may use")
     P = v.shape[0]
     out = torch.empty((P, 3), dtype=torch.float32, device=v.device)
+    pk = (torch.empty((depth + 1, P), dtype=torch.float32, device=v.device)
+          if pack is not None else None)
     if P == 0:
-        return out
+        return out if pack is None else (out, pk)
+    extra = ([pk.data_ptr(), float(pack[0]), float(pack[1])]
+             if pack is not None else [])
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         rc = getattr(lib, f"rtfs_{entry}")(
@@ -509,13 +567,10 @@ def _render(entry: str, plain, tables, v, eye, *, nl: int, depth: int,
             tables["mat"].shape[0], nl, v.data_ptr(), out.data_ptr(), P,
             *(float(e) for e in eye), depth, small, atten,
             int(checker_mats[0]), int(checker_mats[1]), int(want_trans),
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        msg = lib.rtfs_error_string(rc).decode()
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
+            *extra, ctypes.c_void_p(stream))
+    cuda_build.check(lib, rc, entry)
     LAUNCHES[entry] += 1
-    return out
+    return out if pack is None else (out, pk)
 
 
 def render_chain(tables, v, eye: Sequence[float], **kw) -> torch.Tensor:
@@ -536,6 +591,57 @@ def render_tree(tables, v, eye: Sequence[float], **kw) -> torch.Tensor:
     return _render("render_tree", render_tree_ref, tables, v, eye, **kw)
 
 
+def render_packed(tables, v, eye: Sequence[float], *,
+                  pack: Tuple[float, float], **kw):
+    """Packed forward, phase 1 of the fit path: [P,3] primary-ray
+    directions -> ([P,3] RGB, [depth+1, P] packed residuals, the layout of
+    ``pack_widths``).  CUDA tensors launch csrc/render_chain.cu's packed
+    instantiation (the chain kernel's image code); CPU tensors run
+    ``render_packed_ref``.  ``pack`` is ``pack_widths(tables["tri"].shape[0],
+    ns, m, nl)``; the other keyword arguments are ``render_kwargs``'s."""
+    return _render("render_packed", render_packed_ref, tables, v, eye,
+                   pack=pack, **kw)
+
+
+def pack_widths(nt: int, ns: int, m: int, nl: int) -> Tuple[float, float]:
+    """Field widths (bw_bi, bw_mid) of the single-plane packed residual: one
+    f32 holds ``(bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid`` exactly (every
+    field a small integer; powers of two, so unpacking multiplies exactly).
+    Raises if the scene exceeds the 2^24 f32 exact-integer budget
+    (render_pallas.py::pack_widths)."""
+    bw_bi = 1
+    while bw_bi < nt + ns + 2:
+        bw_bi *= 2
+    bw_mid = 1
+    while bw_mid < m + 1:
+        bw_mid *= 2
+    if bw_bi * bw_mid * (2 ** nl) > 2 ** 24:
+        raise ValueError(
+            f"packed residual overflows f32 exact integers: "
+            f"{nt + ns} primitives x {m} materials x {nl} lights")
+    return float(bw_bi), float(bw_mid)
+
+
+def unpack_residuals(pk: torch.Tensor, nl: int,
+                     pack: Tuple[float, float]) -> Dict[str, torch.Tensor]:
+    """[depth+1, ...] packed residuals -> ``bi`` (hit primitive id, -1 on a
+    miss), ``mid`` (resolved material id) and ``lit`` ([nl, depth+1, ...]
+    0/1 shadow flags) planes, as f32 — the arithmetic of
+    adjoint_fused.py::_unpack_residuals, exact by construction."""
+    bw_bi, bw_mid = pack
+    hi = torch.trunc(pk * (1.0 / (bw_bi * bw_mid)))   # the lit bit field
+    rem = pk - hi * (bw_bi * bw_mid)
+    mid = torch.trunc(rem * (1.0 / bw_bi))
+    biq = rem - mid * bw_bi
+    lits = []
+    for _ in range(nl):
+        nxt = torch.trunc(hi * 0.5)
+        lits.append(hi - nxt * 2.0)
+        hi = nxt
+    lit = torch.stack(lits) if lits else pk.new_zeros((0, *pk.shape))
+    return dict(bi=biq - 1.0, mid=mid, lit=lit)
+
+
 # ------------------------------------------------------------- full frame
 
 def render_kwargs(scene: FlatScene, config: RenderConfig) -> dict:
@@ -552,7 +658,8 @@ def render_image_kernel(scene: FlatScene, camera, config: RenderConfig, *,
                         jitter: Optional[torch.Tensor] = None,
                         device=None) -> torch.Tensor:
     """Full-frame render -> [H,W,3] f32 (row j=0 the bottom scanline), on
-    ``device`` (default: the scene's).  The counterpart of
+    ``device``: the GPU by default (raising where there is none);
+    ``device="cpu"`` runs the kernels' plain versions.  The counterpart of
     ``render_pallas.py::render_image_pallas``.
 
     Chain-exact scenes take the chain kernel, the others the tree kernel
@@ -565,7 +672,7 @@ def render_image_kernel(scene: FlatScene, camera, config: RenderConfig, *,
     (MySdlApplication.cpp:1294-1311) exactly as the JAX package does."""
     if config.bf16_shading:
         raise NotImplementedError("bf16_shading has no CUDA kernel yet")
-    device = scene.device if device is None else torch.device(device)
+    device = resolve_device(device)
     scene = scene.to(device)
     w, h = config.width, config.height
     if isinstance(camera, CameraConfig):

@@ -140,6 +140,28 @@ def fractional_glass(size: int = 128, depth: int = 2,
                                            max_depth=depth, samples=1)
 
 
+def glass_chain(size: int = 128, depth: int = 1,
+                dtype=np.float32) -> Preset:
+    """A fully transparent glass sphere (T=1, refraction 0.9) beside an
+    opaque one, lit by two lights: a chain-exact scene on which the chain
+    takes the transmitted child (Snell) and the packed residual carries two
+    lit bits.  The scene of the JAX package's
+    tests/test_adjoint_fused.py::test_twophase_packed_transmitting_chain;
+    not a CLI preset."""
+    glass = Material(ambient=(0.02, 0.02, 0.02), diffuse=(0.1, 0.1, 0.2),
+                     specular=(0.4, 0.4, 0.4), transparency=(1.0, 1.0, 1.0),
+                     refraction=0.9)
+    scene = (SceneBuilder()
+             .add_checkerboard()
+             .add_sphere("d5", material=glass)
+             .add_sphere("c3")
+             .add_light("b6")
+             .add_light("f7", color=(0.8, 0.9, 1.0))
+             .build(dtype=dtype))
+    return scene, _cam(size), RenderConfig(width=size, height=size,
+                                           max_depth=depth, samples=1)
+
+
 PRESETS = {
     "reference_demo": reference_demo,
     "single_sphere": single_sphere,

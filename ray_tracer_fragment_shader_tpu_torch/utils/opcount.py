@@ -1,0 +1,199 @@
+"""The work a kernel call needs on its inputs: FP32 operations and device
+bytes, for the roofline bound that ``chip_smoke.py`` reports beside each
+kernel's time.
+
+Operations are counted by hand from the CUDA sources, as written: each
+``+ - * /``, ``sqrtf`` and ``rsqrtf`` is one, comparisons, selects and
+``fabsf`` none (so an FMA-contractible pair counts 2, as the card's peak
+rate does).  The per-unit counts below name the device function they
+price.  The counts multiply the units that THESE inputs run, found by
+replaying the kernels' control flow with their plain versions: node
+visits, primitive tests per closest-hit sweep (the excluded origin
+primitive skipped), shadow-sweep tests up to the first occluder for the
+any-hit sweep, lit lights, hit levels and pixels with a nonzero cotangent
+in the adjoint.  Bytes count each input that the function needs read once
+(in the adjoint: a ray and residual levels only where the cotangent is
+nonzero) and each output written once.  The bound is the larger of
+ops / 67 TFLOP/s and bytes / 3.35 TB/s (H100 SXM, FP32 outside the tensor
+cores, at 700 W).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..kernels.render import _PlainOps, unpack_residuals
+
+#: H100 SXM peaks (NVIDIA data sheet, 700 W)
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# --- tile_ops.cuh (forward), FP32 operations per unit ----------------------
+TRI_TEST = 41      # tri_hit
+SPH_TEST = 19      # sph_hit
+RAY_SETUP = 10     # ray_setup
+HIT_ATTRS = 27     # hit_attrs
+DIRS = 14          # secondary_dirs, reflected direction
+SNELL = 20         # secondary_dirs, transmitted direction (WANT_TRANS)
+SHADE_LIGHT = 56   # shade, one light without its shadow sweep
+CHAIN_STEP = 11    # render_chain.cu child select and throughput
+TREE_PUSH = 12     # render_tree.cu, one pushed child
+# --- adjoint_ops.cuh / adjoint_packed.cu -----------------------------------
+PROLOGUE = 15        # cotangent and squared-error term, per pixel
+PRIMAL = 29          # node_primal, common part
+PRIMAL_TRI = 14      # node_primal, triangle hit
+PRIMAL_SPH = 31      # node_primal, sphere hit (distance and normal)
+PRIMAL_SNELL = 19    # node_primal, transmitted direction
+REV_LIGHT = 124      # node_reverse, one lit light
+REV_TAIL = 28        # node_reverse, reflection and cosi adjoints
+REV_TRI = 49         # node_reverse, triangle hit
+REV_SPH = 96         # node_reverse, sphere hit
+REV_SNELL = 22       # snell_reverse
+SCATTER = 13         # one hit level's sphere and material sums
+
+
+def bound_ms(ops: float, nbytes: float) -> Tuple[float, str]:
+    """(least time in ms, "operations" or "bytes": which term bounds)."""
+    t_ops = ops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _shadow_tests(ops: _PlainOps, px, py, pz, bi, hitm, light,
+                  any_hit: bool) -> Tuple[int, int]:
+    """(triangle, sphere) tests of one light's shadow sweep over the hit
+    lanes: up to the first occluder for the any-hit sweep, all of them for
+    the nearest-occluder sweep."""
+    svx, svy, svz = light[0] - px, light[1] - py, light[2] - pz
+    vlen2 = svx * svx + svy * svy + svz * svz
+    ok = hitm & (vlen2 > 0.0)
+    inv = torch.rsqrt(torch.where(ok, vlen2, 1.0))
+    ux, uy, uz = svx * inv, svy * inv, svz * inv
+    found = torch.zeros_like(ok)
+    n_tri = n_sph = 0
+    for i in range(ops.nt):
+        if ops.tri[i][19] > 0.5:
+            active = ok & ~found & (bi != float(i))
+            n_tri += int(active.sum())
+            if any_hit:
+                found |= active & ops._tri_hit(i, px, py, pz, svx, svy, svz,
+                                               ok, bi)[0]
+    for i in range(ops.ns):
+        if ops.sph[i][5] > 0.5:
+            active = ok & ~found & (bi != float(i + ops.nt))
+            n_sph += int(active.sum())
+            if any_hit:
+                found |= active & ops._sph_hit(i, px, py, pz, ux, uy, uz, ok,
+                                               bi)[0]
+    return n_tri, n_sph
+
+
+def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
+                 nl: int, depth: int, small: float, atten: float,
+                 checker_mats, want_trans: bool) -> Dict[str, float]:
+    """FP32 operations and bytes of one chain (``tree=False``; ``packed``
+    adds the residual planes' bytes) or tree kernel call on [P,3] primary
+    directions ``v`` — what csrc/render_chain.cu or render_tree.cu runs on
+    these inputs."""
+    P = v.shape[0]
+    ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
+                    checker_mats=checker_mats, all_opaque=not want_trans)
+    n_tri_ok = sum(1 for t in ops.tri if t[19] > 0.5)
+    n_sph_ok = sum(1 for s in ops.sph if s[5] > 0.5)
+    work = dict(visits=0, hits=0, tri_tests=0, sph_tests=0)
+    per_hit = HIT_ATTRS + DIRS + (SNELL if want_trans else 0) \
+        + nl * SHADE_LIGHT + (TREE_PUSH if tree else CHAIN_STEP)
+
+    def visit(o, d, excl, alive, thr, col):
+        """One trace_node over the ``alive`` lanes."""
+        n_alive = int(alive.sum())
+        work["visits"] += n_alive
+        work["tri_tests"] += n_tri_ok * n_alive - int(
+            (alive & (excl >= 0) & (excl < ops.nt)).sum())
+        work["sph_tests"] += n_sph_ok * n_alive - int(
+            (alive & (excl >= ops.nt)).sum())
+        out = ops.node(*o, *d, excl, alive, thr, col, want_trans)
+        hitm, bi, p = out[0], out[1], out[2]
+        work["hits"] += int(hitm.sum())
+        for light in ops.light:
+            t, s = _shadow_tests(ops, *p, bi, hitm, light, not want_trans)
+            work["tri_tests"] += t
+            work["sph_tests"] += s
+        return out
+
+    one = ops.full(1.0)
+    thr, col = (one,) * 3, (ops.full(0.0),) * 3
+    o = tuple(ops.full(float(e)) for e in eye)
+    d = (v[:, 0], v[:, 1], v[:, 2])
+    alive = torch.ones(P, dtype=torch.bool, device=v.device)
+    if not tree:
+        excl = ops.full(-1.0)
+        for _ in range(depth + 1):
+            hitm, bi, p, mats, dirs, _, _ = visit(o, d, excl, alive, thr, col)
+            take_t = mats[:, 13] > 0.5
+            d = tuple(torch.where(take_t, t, r)
+                      for t, r in zip(dirs[3:], dirs[:3]))
+            branch = torch.where(take_t, d[0] * d[0] + d[1] * d[1]
+                                 + d[2] * d[2] > 0.0, mats[:, 14] > 0.5)
+            alive = hitm & branch
+            o, excl = p, bi
+    else:
+        def node(o, d, excl, alive, level):
+            hitm, bi, p, mats, dirs, _, _ = visit(o, d, excl, alive, thr, col)
+            if level == depth:
+                return
+            for gate, dd in ((mats[:, 13], dirs[3:]), (mats[:, 14], dirs[:3])):
+                child = hitm & (gate != 0.0)
+                if bool(child.any()):
+                    node(p, tuple(x * gate for x in dd), bi, child, level + 1)
+        node(o, d, ops.full(-1.0), alive, 0)
+    flops = (RAY_SETUP * work["visits"] + TRI_TEST * work["tri_tests"]
+             + SPH_TEST * work["sph_tests"] + per_hit * work["hits"])
+    nbytes = P * 24 + (P * 4 * (depth + 1) if packed else 0)
+    return dict(work, ops=float(flops), bytes=float(nbytes))
+
+
+def adjoint_work(tables, img, target, mask, pk, *, pack, nl: int,
+                 depth: int, want_trans: bool) -> Dict[str, float]:
+    """FP32 operations and bytes of one csrc/adjoint_packed.cu call on these
+    inputs: the prologue for every pixel; for the pixels with a nonzero
+    cotangent, the primal and reverse sweeps of each hit level before the
+    first miss, with their lit lights, and one add per gradient term.
+    Bytes: img, target and mask of every pixel; for the pixels with a
+    nonzero cotangent, the residual levels up to the first miss (or all
+    depth+1) and, where level 0 hits, the ray; the gradient tables once.
+    The kernel's column reduction is not counted: it is overhead of this
+    design, not work the function needs."""
+    P = img.shape[0]
+    nt = tables["tri"].shape[0]
+    g_live = ((img - target) * mask[:, None] != 0.0).any(-1)
+    res = unpack_residuals(pk, nl, pack)
+    hit = res["bi"] >= 0.0
+    lead = torch.cumprod(hit.int(), 0).bool() & g_live[None, :]
+    is_tri = res["bi"] < nt
+    level = torch.arange(depth + 1, device=pk.device)[:, None]
+    # the primal pass visits every hit level but the last; the reverse all
+    fwd = lead & (level < lead.sum(0)[None, :] - 1)
+    lits = (res["lit"] > 0.5) & lead[None]      # [nl, D+1, P]
+    n_tri = int((lead & is_tri).sum()) + int((fwd & is_tri).sum())
+    n_sph = int((lead & ~is_tri).sum()) + int((fwd & ~is_tri).sum())
+    n_hit = int(lead.sum())
+    # levels with a child (lv < depth) take the Snell record and reverse
+    n_snell = (int(fwd.sum()) + int(lead[:depth].sum())) if want_trans else 0
+    n_snell_rev = int(lead[:depth].sum()) if want_trans else 0
+    flops = (PROLOGUE * P + PRIMAL * (n_tri + n_sph)
+             + PRIMAL_TRI * n_tri + PRIMAL_SPH * n_sph
+             + PRIMAL_SNELL * n_snell + REV_SNELL * n_snell_rev
+             + REV_LIGHT * int(lits.sum()) + REV_TAIL * n_hit
+             + REV_TRI * int((lead & is_tri).sum())
+             + REV_SPH * int((lead & ~is_tri).sum()) + SCATTER * n_hit)
+    n_lead = lead.sum(0)
+    pk_levels = int(torch.clamp(n_lead + 1, max=depth + 1)[g_live].sum())
+    ncols = 1 + 4 * tables["sph"].shape[0] + 9 * tables["mat"].shape[0] \
+        + 3 * nl
+    nbytes = (P * (12 + 12 + 4) + 4 * pk_levels
+              + 12 * int((n_lead > 0).sum()) + 4 * ncols)
+    return dict(hit_levels=n_hit, live_pixels=int(g_live.sum()),
+                ops=float(flops), bytes=float(nbytes))

@@ -33,7 +33,7 @@ def test_render_writes_render_image_kernel_output(tmp_path, capsys):
     img = tcli.main(["render", "--preset", "full_reflective", "--size", "32",
                      "--depth", "2", "--cpu", "--out", str(out)])
     scene, cam, cfg = presets.full_reflective(size=32, depth=2)
-    want = render_image_kernel(scene, cam, cfg)
+    want = render_image_kernel(scene, cam, cfg, device="cpu")
     np.testing.assert_array_equal(np.load(out), want.numpy())
     assert torch.equal(img, want)
     text = capsys.readouterr().out
@@ -48,7 +48,8 @@ def test_render_png_and_adaptive_flags(tmp_path):
     scene, cam, cfg = presets.reference_demo()
     cfg = dataclasses.replace(cfg, width=16, height=16, max_depth=1,
                               samples=2, adaptive=True)
-    assert torch.equal(img, render_image_kernel(scene, cam, cfg))
+    assert torch.equal(img, render_image_kernel(scene, cam, cfg,
+                                                device="cpu"))
     raster = read_ppm(str(out))
     assert raster.shape == (16, 16, 3) and raster.max() > 0
 

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card, against their plain PyTorch versions on
 the same inputs.  Every test here needs a CUDA GPU and skips without one.
-The file imports no JAX, so it runs on a machine without it:
+The file imports no JAX, so it runs on a machine without it (the fit
+kernels' tests at the end hold K3 and K4 against their plain versions):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -91,7 +92,8 @@ def test_render_image_kernel_on_the_card(cuda):
                                    dataclasses.replace(cfg, samples=1),
                                    device=cuda)
     cpu = K.render_image_kernel(scene, cam, dataclasses.replace(cfg,
-                                                                samples=1))
+                                                                samples=1),
+                                device="cpu")
     assert_close_frac(cpu, single.cpu(), 0.01)
 
 
@@ -117,3 +119,96 @@ def test_kernel_matches_pallas_golden(cuda, name, kw, budget):
                                                    f"{name}_pallas.npy")))
     img = K.render_image_kernel(scene, cam, cfg, device=cuda)
     assert_close_frac(golden, img.cpu(), budget)
+
+
+# ---- the fit kernels: packed forward (K3) and adjoint (K4) ---------------
+
+def fit_case(name, device):
+    """The adjoint's inputs on a 64x64 scene with its sphere centres moved
+    by 1.5 (target: the unperturbed render), from the packed kernel."""
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import FitParams
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    make = dict(full_reflective=lambda: presets.full_reflective(size=N,
+                                                                depth=3),
+                glass_chain=lambda: presets.glass_chain(size=N, depth=3),
+                faint_glass=lambda: presets.glass_chain(size=N, depth=3))
+    scene, cam, cfg = make[name]()
+    if name == "faint_glass":
+        # transparent (shadows see through it) but under small_number, so
+        # the chain reflects where glass_chain transmits
+        scene = scene.replace(mat_transparency=scene.mat_transparency * 1e-9)
+    camera = Camera.from_config(cam, N, N, device=device)
+    target = K.render_image_kernel(scene, camera, cfg, device=device)
+    params = FitParams.from_scene(scene)
+    with torch.no_grad():
+        params.sph_center += 1.5
+    prep = AF.prepare_fit_inputs(camera, cfg, target, device=device)
+    _, tables, kw, akw = AF.kernel_inputs(params.into_scene(scene), cfg,
+                                          N * N, device=device)
+    return (tables, prep["v"], prep["eye"], kw, prep["target"], prep["mask"],
+            akw)
+
+
+@pytest.mark.parametrize("name", ["full_reflective", "glass_chain"])
+def test_packed_kernel_matches_plain(cuda, name):
+    tables, v, eye, kw, _, _, akw = fit_case(name, cuda)
+    before = K.LAUNCHES["render_packed"]
+    img, pk = K.render_packed(tables, v, eye, pack=akw["pack"], **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["render_packed"] == before + 1
+    ref_img, ref_pk = K.render_packed_ref(tables, v, eye, pack=akw["pack"],
+                                          **kw)
+    assert_close_frac(ref_img, img, 0.01)
+    assert (pk != ref_pk).float().mean().item() <= 0.01
+    assert torch.equal(img, K.render_chain(tables, v, eye, **kw))
+
+
+@pytest.mark.parametrize("name", ["full_reflective", "glass_chain",
+                                  "faint_glass"])
+def test_adjoint_kernel_matches_plain_and_is_deterministic(cuda, name):
+    """Loss within 1e-5 relative; each gradient table within 1e-3 of
+    max|plain| (float32 reassociation); two launches bit-identical."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    tables, v, eye, kw, target, mask, akw = fit_case(name, cuda)
+    img, pk = K.render_packed(tables, v, eye, pack=akw["pack"], **kw)
+    args = (tables, v, eye, img, target, mask, pk)
+    before = K.LAUNCHES["adjoint_packed"]
+    a = AF.adjoint_packed(*args, **akw)
+    b = AF.adjoint_packed(*args, **akw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["adjoint_packed"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref = AF.adjoint_packed_ref(*args, **akw)
+    assert a[0].item() == pytest.approx(ref[0].item(), rel=1e-5)
+    for got, want in zip(a[1:], ref[1:]):
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err <= 1e-3, err
+
+
+def test_adjoint_wrapper_refuses_other_devices(cuda):
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    tables, v, eye, kw, target, mask, akw = fit_case("full_reflective", cuda)
+    img, pk = K.render_packed(tables, v, eye, pack=akw["pack"], **kw)
+    with pytest.raises(ValueError, match="pk must be"):
+        AF.adjoint_packed(tables, v, eye, img, target, mask, pk.cpu(), **akw)
+    with pytest.raises(ValueError, match="table"):
+        K.render_packed({k: t.cpu() for k, t in tables.items()}, v, eye,
+                        pack=akw["pack"], **kw)
+
+
+def test_fit_entry_points_run_on_the_card_by_default(cuda):
+    from ray_tracer_fragment_shader_tpu_torch import (FitParams,
+                                                      fit_value_and_grad)
+    scene, cam, cfg = presets.fit_target(size=N)
+    camera = Camera.from_config(cam, N, N)
+    target = K.render_image_kernel(scene, camera, cfg)
+    assert target.is_cuda
+    params = FitParams.from_scene(scene).to(cuda)
+    K.reset_launch_counts()
+    loss, grads = fit_value_and_grad(params, scene, camera, cfg, target)
+    torch.cuda.synchronize()
+    assert loss.is_cuda and all(g.is_cuda for g in grads.values())
+    assert K.LAUNCHES["render_packed"] == K.LAUNCHES["adjoint_packed"] == 1

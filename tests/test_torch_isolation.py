@@ -34,7 +34,8 @@ def test_port_imports_no_jax():
 
 
 def test_kernel_paths_have_no_fallback():
-    for name in ("render.py", "cuda_build.py"):
+    for name in ("render.py", "cuda_build.py", "adjoint.py",
+                 "adjoint_fused.py"):
         with open(os.path.join(PORT_DIR, "kernels", name)) as f:
             src = f.read()
         assert not re.search(r"^\s*(try\s*:|except\b)", src, re.M), name
@@ -53,5 +54,9 @@ def test_every_module_is_found():
     names = {m.name for m in pkgutil.walk_packages(port.__path__,
                                                    port.__name__ + ".")}
     assert {"ray_tracer_fragment_shader_tpu_torch.kernels.render",
+            "ray_tracer_fragment_shader_tpu_torch.kernels.adjoint",
+            "ray_tracer_fragment_shader_tpu_torch.kernels.adjoint_fused",
+            "ray_tracer_fragment_shader_tpu_torch.diff.fit",
+            "ray_tracer_fragment_shader_tpu_torch.utils.checkpoint",
             "ray_tracer_fragment_shader_tpu_torch.cli",
             "ray_tracer_fragment_shader_tpu_torch.scene.flat"} <= names

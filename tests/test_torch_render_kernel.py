@@ -74,7 +74,8 @@ CORE_CASES = [
 def test_chain_matches_jax_core(name, kw, budget):
     (js, jc, jf), (ts, tc, tf) = both(name, size=SIZE, **kw)
     assert_close_frac(render_image(js, jc, jf),
-                      K.render_image_kernel(ts, tc, tf), budget, name)
+                      K.render_image_kernel(ts, tc, tf, device="cpu"), budget,
+                      name)
 
 
 def test_reference_demo_matches_jax_core():
@@ -86,7 +87,7 @@ def test_reference_demo_matches_jax_core():
     # the demo's 1:1 pixel scale puts a whole image row on the horizon,
     # where checker parity is decision-boundary noise
     assert_close_frac(render_image(js, jc, jf),
-                      K.render_image_kernel(ts, tc, tf), 0.02)
+                      K.render_image_kernel(ts, tc, tf, device="cpu"), 0.02)
 
 
 GOLDEN_CASES = [
@@ -104,7 +105,8 @@ def test_chain_matches_pallas_golden(name, kw, budget):
     """The JAX kernel's own output at 64x64 (scripts/make_goldens.py)."""
     scene, cam, cfg = tpresets.PRESETS[name](size=64, **kw)
     golden = np.load(os.path.join(GOLDEN_DIR, f"{name}_pallas.npy"))
-    assert_close_frac(golden, K.render_image_kernel(scene, cam, cfg),
+    assert_close_frac(golden,
+                      K.render_image_kernel(scene, cam, cfg, device="cpu"),
                       budget, name)
 
 
@@ -115,7 +117,7 @@ def test_reference_demo_adaptive_matches_pallas_golden():
     cfg = dataclasses.replace(cfg, width=64, height=64, adaptive=True)
     golden = np.load(os.path.join(GOLDEN_DIR, "reference_demo_pallas.npy"))
     img = K.render_image_kernel(scene, cam, cfg,
-                                jitter=jax_jitter(cfg, 64 * 64))
+                                jitter=jax_jitter(cfg, 64 * 64), device="cpu")
     assert_close_frac(golden, img, 0.02)
 
 
@@ -126,15 +128,18 @@ def test_tree_matches_jax_core_on_fractional_scene():
     js = _fractional_scene()
     a = render_image(js, JCameraConfig(**dataclasses.asdict(cam)),
                      JRenderConfig(**dataclasses.asdict(cfg)))
-    assert_close_frac(a, K.render_image_kernel(ts, cam, cfg), 0.01)
+    assert_close_frac(a, K.render_image_kernel(ts, cam, cfg, device="cpu"),
+                      0.01)
 
 
 def test_tree_matches_chain_on_chain_exact_scene():
     scene, cam, cfg = tpresets.full_reflective(size=SIZE)
-    chain = K.render_image_kernel(scene, cam, cfg)
-    tree = K.render_image_kernel(scene.replace(chain_exact=False), cam, cfg)
+    chain = K.render_image_kernel(scene, cam, cfg, device="cpu")
+    tree = K.render_image_kernel(scene.replace(chain_exact=False), cam, cfg,
+                                 device="cpu")
     forced = K.render_image_kernel(scene, cam,
-                                   dataclasses.replace(cfg, mode="tree"))
+                                   dataclasses.replace(cfg, mode="tree"),
+                                   device="cpu")
     assert_close_frac(chain.numpy(), tree.numpy(), 0.01)
     assert torch.equal(tree, forced)
 
@@ -143,7 +148,7 @@ def test_nonsquare_frame():
     (js, jc, jf), (ts, tc, tf) = both("single_sphere", size=SIZE)
     jf = dataclasses.replace(jf, width=48, height=24)
     tf = dataclasses.replace(tf, width=48, height=24)
-    b = K.render_image_kernel(ts, tc, tf)
+    b = K.render_image_kernel(ts, tc, tf, device="cpu")
     assert tuple(b.shape) == (24, 48, 3)
     assert np.abs(np.asarray(render_image(js, jc, jf)) - b.numpy()).max() < TOL
 
@@ -154,7 +159,8 @@ def test_supersampling_with_jax_jitter_matches_core(adaptive):
     (js, jc, jf), (ts, tc, tf) = both("single_sphere", size=16)
     jf = dataclasses.replace(jf, samples=4, adaptive=adaptive)
     tf = dataclasses.replace(tf, samples=4, adaptive=adaptive)
-    img = K.render_image_kernel(ts, tc, tf, jitter=jax_jitter(tf, 16 * 16))
+    img = K.render_image_kernel(ts, tc, tf, jitter=jax_jitter(tf, 16 * 16),
+                                device="cpu")
     np.testing.assert_allclose(img.numpy(), np.asarray(render_image(js, jc, jf)),
                                atol=1e-3)
 
@@ -162,21 +168,35 @@ def test_supersampling_with_jax_jitter_matches_core(adaptive):
 def test_generator_jitter_is_seeded():
     scene, cam, cfg = tpresets.single_sphere(size=16)
     cfg = dataclasses.replace(cfg, samples=3)
-    a = K.render_image_kernel(scene, cam, cfg)
+    a = K.render_image_kernel(scene, cam, cfg, device="cpu")
     b = K.render_image_kernel(scene, cam, cfg,
-                              generator=torch.Generator().manual_seed(0))
-    c = K.render_image_kernel(scene, cam, dataclasses.replace(cfg, seed=1))
+                              generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    c = K.render_image_kernel(scene, cam, dataclasses.replace(cfg, seed=1),
+                              device="cpu")
     assert torch.equal(a, b) and not torch.equal(a, c)
     with pytest.raises(ValueError, match="jitter"):
-        K.render_image_kernel(scene, cam, cfg, jitter=torch.zeros(2, 5, 3))
+        K.render_image_kernel(scene, cam, cfg, jitter=torch.zeros(2, 5, 3),
+                              device="cpu")
 
 
 def test_cpu_tensors_never_launch_kernels():
     K.reset_launch_counts()
     scene, cam, cfg = tpresets.full_reflective(size=16)
-    K.render_image_kernel(scene, cam, cfg)
-    K.render_image_kernel(scene.replace(chain_exact=False), cam, cfg)
-    assert K.LAUNCHES == {"render_chain": 0, "render_tree": 0}
+    K.render_image_kernel(scene, cam, cfg, device="cpu")
+    K.render_image_kernel(scene.replace(chain_exact=False), cam, cfg,
+                          device="cpu")
+    assert K.LAUNCHES == {"render_chain": 0, "render_tree": 0,
+                          "render_packed": 0, "adjoint_packed": 0}
+
+
+def test_no_device_without_cuda_raises(monkeypatch):
+    """A CPU scene and no ``device``: the entry point runs on the GPU or
+    raises; it never renders on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene, cam, cfg = tpresets.full_reflective(size=8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        K.render_image_kernel(scene, cam, cfg)
 
 
 def _wrapper_inputs(size=16):
@@ -201,4 +221,5 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(NotImplementedError):
         scene, cam, cfg = tpresets.single_sphere(size=8)
         K.render_image_kernel(scene, cam,
-                              dataclasses.replace(cfg, bf16_shading=True))
+                              dataclasses.replace(cfg, bf16_shading=True),
+                              device="cpu")
