@@ -38,15 +38,44 @@ Phases (each raises on failure; the script then exits non-zero):
    counters must show K3 and K4 launched; config 3's and config 5's losses
    and gradients are then held against the plain version on the same
    inputs, as in phase 4;
-6. each timed kernel's output against its plain version (phase 2's
+6. the one-dispatch fit kernels against their plain versions at 128^2, on
+   the scenes of phase 4 and fractional_glass d3 (the tree), parameters
+   sphere centres + 1.5, target the unperturbed render: K6
+   (``fused_adjoint``) and K7 (``recompute_adjoint``, cotangent
+   (2/denom)(img - target)), each twice bit-identical, with the loss within
+   1e-5 relative and each gradient table within 1e-3 of max|plain| over the
+   full frame; on the chain scenes K6 also against K3+K4 to the same
+   tolerances;
+7. this slice's paths at full width, each with the launch counters zeroed
+   just before it and read just after: the fused chain
+   (``fit_value_and_grad(mode="fused")``, config 3 1024^2 d3: K6 launched,
+   K3 and K4 not); the tree fit (``fit()`` on fractional_glass 1024^2 d3,
+   5 Adam steps from mat_diffuse*1.6 + 0.05, one Adam at 0.02 over every
+   leaf: K6 only, the loss falls); the reference's frame (reference_demo
+   500^2 d5, 16 samples adaptive, jitter from a seeded torch.Generator:
+   one ``fit_value_and_grad`` from sphere centres + 1.5 with up to 16
+   chain renders and as many K7, then 3 Adam steps of
+   ``default_fit_optimizer``, the loss finite, the accept planes mixed);
+   and the tree supersampled fit (fractional_glass 512^2 d3, 4 samples:
+   K5 and K7).  Each is then held against its plain version on the same
+   inputs (the same jitter), full frame, to phase 6's tolerances: K6
+   launched directly on the path's inputs (bit-identical to the path's
+   result where the path is one launch), the sampled paths against
+   ``recompute_adjoint_ref`` per sample under the same weights.
+
+8. each timed kernel's output against its plain version (phase 2's
    budget), then CUDA-event times of the kernel and its plain version
    (plain, kernel, kernel, plain), beside the card's name and power limit;
    for K3 and K4 at config 3 1024^2 d3 and config 5 2048^2 d3, and one
-   fwd+bwd step (``fit_value_and_grad``) on the host clock.  Each kernel's
-   bound is the larger of its FP32 operations over 67 TFLOP/s and its
-   bytes over 3.35 TB/s, counted on this run's inputs
+   fwd+bwd step (``fit_value_and_grad``) on the host clock.  Then K6 at
+   config 3, config 5 and fractional_glass 1024^2 d3 (its plain version
+   except at config 5), K6 against K3+K4 alternated (K3+K4, K6, K6, K3+K4)
+   and held to phase 6's tolerances, K7 at reference_demo 500^2 d5 and
+   fractional_glass 512^2 d3 (one sample each), and each path's step
+   (``fit_value_and_grad``) on the host clock in ms and rays/s.  Each
+   kernel's bound is the larger of its FP32 operations over 67 TFLOP/s and
+   its bytes over 3.35 TB/s, counted on this run's inputs
    (``utils/opcount.py``).
-
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.
@@ -88,6 +117,14 @@ KERNEL_SOURCES = {
                        "adjoint_packed.cu",
                        "ray_tracer_fragment_shader_tpu/kernels/"
                        "adjoint_fused.py:866"),
+    "fused_adjoint": ("ray_tracer_fragment_shader_tpu_torch/kernels/csrc/"
+                      "adjoint_fused.cu",
+                      "ray_tracer_fragment_shader_tpu/kernels/"
+                      "adjoint_fused.py:1031"),
+    "recompute_adjoint": ("ray_tracer_fragment_shader_tpu_torch/kernels/csrc/"
+                          "adjoint_fused.cu",
+                          "ray_tracer_fragment_shader_tpu/kernels/"
+                          "adjoint_fused.py:1123"),
 }
 FIELDS = ("sph_center", "sph_radius", "light_pos", "mat_diffuse",
           "mat_specular", "mat_ambient")
@@ -139,50 +176,172 @@ def rel_err(got, ref):
     return diff / scale if scale > 0 else diff
 
 
-def fit_inputs(K, AF, dev, preset, dc=1.5):
-    """The adjoint's inputs on scene ``preset`` with its sphere centres moved
-    by ``dc``: the tables, rays, kernel image and residuals, target, mask and
-    keywords of ``AF.kernel_inputs``, the parameters, camera and config.
-    The target is the unperturbed scene's chain-kernel render; img and pk
-    come from the packed kernel."""
+def fit_inputs(K, AF, dev, preset, dc=1.5, params=None):
+    """The fit kernels' inputs on scene ``preset`` with its sphere centres
+    moved by ``dc`` (or with ``params``): the tables, rays, target, mask and
+    keywords of ``AF.kernel_inputs``, ``tree`` (the scene is not
+    chain-exact), the parameters, camera and config; on chain scenes also
+    the packed kernel's image and residuals (img, pk).  The target is the
+    unperturbed scene's kernel render."""
     import torch
     from ray_tracer_fragment_shader_tpu_torch.diff.fit import FitParams
     from ray_tracer_fragment_shader_tpu_torch.ops.rays import Camera
     scene, cam, cfg = preset
     camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
     target = K.render_image_kernel(scene, camera, cfg, device=dev)
-    params = FitParams.from_scene(scene)
-    with torch.no_grad():
-        params.sph_center += dc
+    if params is None:
+        params = FitParams.from_scene(scene)
+        with torch.no_grad():
+            params.sph_center += dc
     prep = AF.prepare_fit_inputs(camera, cfg, target, device=dev)
     v, eye = prep["v"], prep["eye"]
-    _, tables, kw, akw = AF.kernel_inputs(params.into_scene(scene), cfg,
-                                          v.shape[0], device=dev)
-    img, pk = K.render_packed(tables, v, eye, pack=akw["pack"], **kw)
-    return dict(tables=tables, v=v, eye=eye, img=img, pk=pk, kw=kw,
-                target=prep["target"], mask=prep["mask"], akw=akw,
-                scene=scene, params=params, camera=camera, cfg=cfg)
+    scene_c, tables, kw, akw = AF.kernel_inputs(params.into_scene(scene), cfg,
+                                                v.shape[0], device=dev)
+    x = dict(tables=tables, v=v, eye=eye, kw=kw, target=prep["target"],
+             mask=prep["mask"], akw=akw, tree=not scene_c.chain_exact,
+             scene=scene, scene_c=scene_c, params=params, camera=camera,
+             cfg=cfg)
+    if not x["tree"]:
+        x["img"], x["pk"] = K.render_packed(tables, v, eye, pack=akw["pack"],
+                                            **kw)
+    return x
+
+
+def fused_args(x):
+    """(args, keywords) of fused_adjoint / fused_adjoint_ref on ``x``."""
+    return ((x["tables"], x["v"], x["eye"], x["target"], x["mask"]),
+            dict(tree=x["tree"], pack=x["akw"]["pack"],
+                 g_scale=x["akw"]["g_scale"], **x["kw"]))
+
+
+def recompute_args(K, x):
+    """(args, keywords) of recompute_adjoint / recompute_adjoint_ref on
+    ``x``: the cotangent is (2/denom)(img - target), img the chain or tree
+    kernel's render of the moved scene."""
+    render = K.render_tree if x["tree"] else K.render_chain
+    img = render(x["tables"], x["v"], x["eye"], **x["kw"])
+    g = (x["akw"]["g_scale"] * (img - x["target"])).contiguous()
+    return ((x["tables"], x["v"], x["eye"], g),
+            dict(tree=x["tree"], pack=x["akw"]["pack"], **x["kw"]))
+
+
+def hold_grads(kname, label, got, ref, against="plain"):
+    """Holds a fit kernel's output ``got`` against its plain version's
+    ``ref`` (or what ``against`` names), both (loss, dsph, dmat, dlight) or,
+    for K7, (dsph, dmat, dlight): the loss within LOSS_REL_TOL, each
+    gradient table within max|diff| <= GRAD_REL_TOL max|ref|.  Returns the
+    largest absolute table difference."""
+    import torch
+    torch.cuda.synchronize()
+    msg = ""
+    loss_rel = 0.0
+    if len(got) == 4:
+        loss_rel = abs(got[0].item() - ref[0].item()) / max(
+            abs(ref[0].item()), 1e-30)
+        msg = (f"loss {got[0].item():.7g} vs {against} {ref[0].item():.7g} "
+               f"(rel {loss_rel:.2e}); ")
+        got, ref = got[1:], ref[1:]
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    print(f"{kname} {label}: {msg}max|diff|/max|{against}| dsph "
+          f"{errs[0]:.2e} dmat {errs[1]:.2e} dlight {errs[2]:.2e} "
+          f"(tolerance {GRAD_REL_TOL})")
+    check(loss_rel <= LOSS_REL_TOL and max(errs) <= GRAD_REL_TOL,
+          f"{kname} disagrees with {against} on {label}")
+    return max((g - r).abs().max().item() for g, r in zip(got, ref))
+
+
+def twice(fn, kname, label):
+    """Two launches of ``fn``, which must give bit-identical outputs."""
+    import torch
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    ident = all(torch.equal(p, q) for p, q in zip(a, b))
+    print(f"check {kname} {label}: two launches bit-identical: {ident}")
+    check(ident, f"{kname} is not deterministic on {label}")
+    return a
+
+
+def as_fields(AF, x, tables):
+    """Gradient tables (dsph, dmat, dlight) of the compacted scene of ``x``
+    as FitParams fields."""
+    return AF.grads_to_fitparams(x["params"], x["scene"],
+                                 AF._grads_c(x["scene_c"], *tables))
+
+
+def hold_fields(kname, label, loss, grads, ref_loss, ref):
+    """A path's (loss, FitParams gradients) against the plain version's, to
+    hold_grads' tolerances, field by field."""
+    loss_rel = abs(float(loss) - float(ref_loss)) / max(abs(float(ref_loss)),
+                                                        1e-30)
+    errs = {f: rel_err(grads[f], ref[f]) for f in FIELDS}
+    print(f"{kname} {label}: loss {float(loss):.7g} vs plain "
+          f"{float(ref_loss):.7g} (rel {loss_rel:.2e}); max|diff|/max|plain| "
+          + " ".join(f"{f} {e:.2e}" for f, e in errs.items())
+          + f" (tolerance {GRAD_REL_TOL})")
+    check(loss_rel <= LOSS_REL_TOL and max(errs.values()) <= GRAD_REL_TOL,
+          f"{kname} disagrees with its plain version on {label}")
+    return max((grads[f] - ref[f]).abs().max().item() for f in FIELDS)
+
+
+def sampled_plain(AF, K, dev, preset, params, jitter):
+    """The plain version of a supersampled or adaptive fit on the same
+    inputs as ``fit_value_and_grad`` (the [S, P, 3] ``jitter``): each
+    sample's image from the chain or tree kernel, the mean or the adaptive
+    emulation, then per sample ``recompute_adjoint_ref`` under the
+    cotangent g/S or g*accept_k/divisor.  Returns (loss, FitParams
+    gradients, the rendered samples' accept planes)."""
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import (
+        Camera, primary_rays, screen_points)
+    scene, cam, cfg = preset
+    h, w, S = cfg.height, cfg.width, cfg.samples
+    camera = Camera.from_config(cam, w, h, device=dev)
+    target = K.render_image_kernel(scene, camera, cfg, jitter=jitter,
+                                   device=dev)
+    sc, tables, kw, akw = AF.kernel_inputs(params.into_scene(scene), cfg,
+                                           h * w, device=dev)
+    tree = not sc.chain_exact
+    render = K.render_tree if tree else K.render_chain
+    eye = camera.eye.tolist()
+    pts0 = screen_points(camera, w, h)
+    accum = torch.zeros((h, w, 3), device=dev)
+    divisor = torch.full((h, w), float(S), device=dev)
+    done = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    rays, accepts = [], []
+    for k in range(S):
+        v = primary_rays(camera, pts0 + jitter[k])[1].contiguous()
+        c = render(tables, v, eye, **kw).reshape(h, w, 3)
+        rays.append(v)
+        if cfg.adaptive:
+            accum, divisor, done, a = K.adaptive_step(k, c, accum, divisor,
+                                                      done, cfg.small_number)
+            accepts.append(a)
+            if bool(done.all()):
+                break
+        else:
+            accum = accum + c
+    img = accum / (divisor[..., None] if cfg.adaptive else S)
+    diff = img - target
+    loss = torch.mean(diff * diff)
+    g = (2.0 / diff.numel()) * diff
+    sums = None
+    for k, v in enumerate(rays):
+        gk = (g * (accepts[k].float() / divisor)[..., None] if cfg.adaptive
+              else g / S)
+        t = AF.recompute_adjoint_ref(tables, v, eye,
+                                     gk.reshape(-1, 3).contiguous(),
+                                     tree=tree, pack=akw["pack"], **kw)
+        sums = t if sums is None else tuple(a + b for a, b in zip(sums, t))
+    grads = AF.grads_to_fitparams(params, scene, AF._grads_c(sc, *sums))
+    return loss, grads, accepts
 
 
 def hold_adjoint(AF, label, x, got):
     """Holds ``got``, what adjoint_packed gave on the inputs ``x``, against
-    adjoint_packed_ref on the same inputs: the loss within LOSS_REL_TOL,
-    each gradient table within GRAD_REL_TOL of max|plain|.  Returns the
-    largest absolute table difference."""
-    import torch
+    adjoint_packed_ref on the same inputs (``hold_grads``)."""
     ref = AF.adjoint_packed_ref(x["tables"], x["v"], x["eye"], x["img"],
                                 x["target"], x["mask"], x["pk"], **x["akw"])
-    torch.cuda.synchronize()
-    loss_rel = abs(got[0].item() - ref[0].item()) / max(abs(ref[0].item()),
-                                                        1e-30)
-    errs = [rel_err(g, r) for g, r in zip(got[1:], ref[1:])]
-    print(f"adjoint_packed {label}: loss {got[0].item():.7g} vs plain "
-          f"{ref[0].item():.7g} (rel {loss_rel:.2e}); max|diff|/max|plain| "
-          f"dsph {errs[0]:.2e} dmat {errs[1]:.2e} dlight {errs[2]:.2e} "
-          f"(tolerance {GRAD_REL_TOL})")
-    check(loss_rel <= LOSS_REL_TOL and max(errs) <= GRAD_REL_TOL,
-          f"adjoint_packed disagrees with its plain version on {label}")
-    return max((g - r).abs().max().item() for g, r in zip(got[1:], ref[1:]))
+    return hold_grads("adjoint_packed", label, got, ref)
 
 
 def main():
@@ -422,7 +581,179 @@ def main():
     del fit_runs
     torch.cuda.empty_cache()
 
-    # ---- 6. times --------------------------------------------------------
+    # ---- 6. K6 and K7 against their plain versions at 128^2 -------------
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import (
+        default_fit_optimizer, fit)
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import sample_jitter
+    errs.update(fused_adjoint=[], recompute_adjoint=[])
+    frac_case = ("fractional_glass d3 (tree)",
+                 lambda s: presets.fractional_glass(size=s, depth=3))
+    for label, make in fit_cases + [frac_case]:
+        x = fit_inputs(K, AF, dev, make(n))
+        args, kw6 = fused_args(x)
+        a = twice(lambda: AF.fused_adjoint(*args, **kw6), "fused_adjoint",
+                  label)
+        errs["fused_adjoint"].append(hold_grads(
+            "fused_adjoint", label, a, AF.fused_adjoint_ref(*args, **kw6)))
+        if not x["tree"]:
+            hold_grads("fused_adjoint", label, a, AF.adjoint_packed(
+                x["tables"], x["v"], x["eye"], x["img"], x["target"],
+                x["mask"], x["pk"], **x["akw"]), against="K3+K4")
+        args7, kw7 = recompute_args(K, x)
+        b = twice(lambda: AF.recompute_adjoint(*args7, **kw7),
+                  "recompute_adjoint", label)
+        errs["recompute_adjoint"].append(hold_grads(
+            "recompute_adjoint", label, b,
+            AF.recompute_adjoint_ref(*args7, **kw7)))
+        del x, a, b, args, args7
+    torch.cuda.empty_cache()
+
+    # ---- 7. this slice's paths at full width ----------------------------
+    slice_launches = {"fused_adjoint": 0, "recompute_adjoint": 0}
+
+    def drive(label, fn, want, absent=()):
+        """Runs one path with the launch counters zeroed just before; each
+        kernel of ``want`` must have launched, none of ``absent``."""
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        print(f"path {label}: launches "
+              f"{ {k: c for k, c in counts.items() if c} }")
+        for k in want:
+            check(counts[k] > 0, f"{label}: the path never launched {k}")
+        for k in absent:
+            check(counts[k] == 0, f"{label}: the path launched {k}")
+        for k in slice_launches:
+            slice_launches[k] += counts[k]
+        return out, counts
+
+    def seeded(cfg):
+        return torch.Generator(dev).manual_seed(cfg.seed)
+
+    # fused chain: config 3, mode="fused"
+    x = fit_inputs(K, AF, dev, fr3)
+    params = x["params"].to(dev)
+    (loss, grads), _ = drive(
+        "fused chain, config 3 1024^2 d3",
+        lambda: AF.fit_value_and_grad(params, x["scene"], x["camera"],
+                                      x["cfg"], x["target"], mode="fused",
+                                      device=dev),
+        want=["fused_adjoint"], absent=["render_packed", "adjoint_packed"])
+    args, kw6 = fused_args(x)
+    direct = AF.fused_adjoint(*args, **kw6)
+    P3 = x["v"].shape[0]
+    same = (torch.equal(direct[0] / (P3 * 3), loss) and all(
+        torch.equal(as_fields(AF, x, direct[1:])[f], grads[f])
+        for f in FIELDS))
+    print(f"path fused chain: loss {loss.item():.7g}; equals a direct K6 "
+          f"launch bit for bit: {same}")
+    check(same, "fused chain: fit_value_and_grad is not reproducible")
+    errs["fused_adjoint"].append(hold_grads(
+        "fused_adjoint", "config 3 1024^2 d3 (path)", direct,
+        AF.fused_adjoint_ref(*args, **kw6)))
+    del x, args, direct, params
+    torch.cuda.empty_cache()
+
+    # the tree fit: fractional_glass 1024^2 d3 through fit(), 5 Adam steps
+    # over every leaf (tests/test_adjoint_tree.py:84-108)
+    fg3 = presets.fractional_glass(size=1024, depth=3)
+    start = FitParams.from_scene(fg3[0])
+    with torch.no_grad():
+        start.mat_diffuse.mul_(1.6).add_(0.05)
+    x = fit_inputs(K, AF, dev, fg3, params=start)
+    params = FitParams.from_scene(fg3[0]).to(dev)
+    params.load_state_dict(start.state_dict())
+    (_, history), _ = drive(
+        "tree fit, fractional_glass 1024^2 d3",
+        lambda: fit(fg3[0], x["camera"], fg3[2], x["target"], steps=5,
+                    params=params, optimizer=torch.optim.Adam(
+                        params.parameters(), lr=0.02), device=dev),
+        want=["fused_adjoint"], absent=["render_packed", "adjoint_packed"])
+    print(f"path tree fit: 5 Adam steps of fit(), loss "
+          f"{' -> '.join(f'{v:.6g}' for v in history)}")
+    check(history[-1] < history[0] and all(map(math.isfinite, history)),
+          "tree fit: the loss did not fall")
+    args, kw6 = fused_args(x)
+    direct = AF.fused_adjoint(*args, **kw6)
+    check(float(direct[0] / (x["v"].shape[0] * 3)) == history[0],
+          "tree fit: the first step's loss is not K6's")
+    errs["fused_adjoint"].append(hold_grads(
+        "fused_adjoint", "fractional_glass 1024^2 d3 (path, first step)",
+        direct, AF.fused_adjoint_ref(*args, **kw6)))
+    del x, args, direct, params
+    torch.cuda.empty_cache()
+
+    # the reference's frame: 500^2 d5, 16 samples adaptive, differentiated
+    demo_a = dataclasses.replace(demo_cfg, adaptive=True)
+    supersampled = [
+        ("reference frame, reference_demo 500^2 d5 16 spp adaptive",
+         (demo, demo_cam, demo_a), "render_chain", 3),
+        ("tree supersampled, fractional_glass 512^2 d3 4 spp",
+         (lambda s, c, f: (s, c, dataclasses.replace(f, samples=4)))(
+             *presets.fractional_glass(size=512, depth=3)), "render_tree",
+         0)]
+    sampled_runs = {}
+    for label, preset, render_k, adam_steps in supersampled:
+        scene, cam, cfg = preset
+        camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+        P = cfg.width * cfg.height
+        gen = seeded(cfg)
+        jit = torch.stack([sample_jitter(gen, P, cfg.jitter_scale).to(dev)
+                           for _ in range(cfg.samples)])
+        target = K.render_image_kernel(scene, camera, cfg, jitter=jit,
+                                       device=dev)
+        start = FitParams.from_scene(scene)
+        with torch.no_grad():
+            start.sph_center += 1.5
+        params = FitParams.from_scene(scene).to(dev)
+        params.load_state_dict(start.state_dict())
+        (loss, grads), counts = drive(
+            label, lambda: AF.fit_value_and_grad(
+                params, scene, camera, cfg, target, generator=seeded(cfg),
+                device=dev),
+            want=[render_k, "recompute_adjoint"])
+        rendered = counts[render_k]
+        check(rendered == counts["recompute_adjoint"] <= cfg.samples,
+              f"{label}: {counts} launches for {cfg.samples} samples")
+        if adam_steps:
+            opt = default_fit_optimizer(params)
+
+            def adam():
+                out = []
+                for _ in range(adam_steps):
+                    opt.zero_grad()
+                    lv, gv = AF.fit_value_and_grad(
+                        params, scene, camera, cfg, target,
+                        generator=seeded(cfg), device=dev)
+                    for f in FIELDS:
+                        getattr(params, f).grad = gv[f]
+                    opt.step()
+                    out.append(float(lv))
+                return out
+            steps, _ = drive(label + ", Adam steps", adam,
+                             want=[render_k, "recompute_adjoint"])
+            print(f"path {label}: {adam_steps} Adam steps "
+                  f"(default_fit_optimizer), loss {float(loss):.6g} -> "
+                  f"{' -> '.join(f'{v:.6g}' for v in steps)}")
+            check(all(map(math.isfinite, steps)), f"{label}: loss not finite")
+        ref_loss, ref, accepts = sampled_plain(AF, K, dev, preset, start, jit)
+        if cfg.adaptive:
+            shares = [round(a.float().mean().item(), 4) for a in accepts]
+            print(f"path {label}: {rendered} of {cfg.samples} samples "
+                  f"rendered; accept shares {shares}")
+            check(len(accepts) == rendered and any(0 < a < 1 for a in shares),
+                  f"{label}: the accept planes are not mixed")
+        errs["recompute_adjoint"].append(hold_fields(
+            "recompute_adjoint", label + " (path)", loss, grads, ref_loss,
+            ref))
+        sampled_runs[label] = (preset, camera, target, start, rendered)
+        del params, grads, ref, accepts, jit
+        torch.cuda.empty_cache()
+    print(f"this slice's paths launched {slice_launches}")
+    launches.update(slice_launches)
+
+    # ---- 8. times --------------------------------------------------------
     timed = {
         "render_chain": ("full_reflective 1024^2 d3",
                          rays(*presets.full_reflective(size=1024, depth=3))),
@@ -513,6 +844,116 @@ def main():
             bounds["render_packed"], bounds["adjoint_packed"] = b3, b4
         del x, args, prep
         torch.cuda.empty_cache()
+
+    # K6 and K7, their plain versions, K6 against K3+K4, and each path's
+    # step on the host clock
+    def step_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def k3k4(x):
+        img, pk = K.render_packed(x["tables"], x["v"], x["eye"],
+                                  pack=x["akw"]["pack"], **x["kw"])
+        return AF.adjoint_packed(x["tables"], x["v"], x["eye"], img,
+                                 x["target"], x["mask"], pk, **x["akw"])
+
+    k6_cases = [("config 3 1024^2 d3", fr3, True),
+                ("config 5 2048^2 d3", c5, False),
+                ("fractional_glass 1024^2 d3", fg3, True)]
+    for label, preset, with_plain in k6_cases:
+        x = fit_inputs(K, AF, dev, preset)
+        args, kw6 = fused_args(x)
+        P = x["v"].shape[0]
+        if with_plain:
+            tk, tp, r = four_times(lambda: AF.fused_adjoint(*args, **kw6),
+                                   lambda: AF.fused_adjoint_ref(*args, **kw6),
+                                   20, 1)
+            plain_txt = f"plain {tp:.2f} ms ({r[2]:.2f}, {r[3]:.2f}); "
+        else:
+            tk, tp = time_ms(lambda: AF.fused_adjoint(*args, **kw6), 20), None
+            plain_txt = "plain not timed (K3+K4's plain K4 is timed); "
+        w6 = opcount.fused_work(x["tables"], x["v"], x["eye"], tree=x["tree"],
+                                pack=x["akw"]["pack"], target=x["target"],
+                                mask=x["mask"], **x["kw"])
+        b6 = opcount.bound_ms(w6["ops"], w6["bytes"])
+        print(f"time fused_adjoint   {label}: kernel {tk:.4f} ms; "
+              f"{plain_txt}bound {b6[0]:.5f} ms ({b6[1]}: "
+              f"{w6['ops']:.4g} FP32 ops, {w6['bytes']:.4g} B; "
+              f"{w6['live_pixels']} pixels with a cotangent, "
+              f"{w6['adjoint_nodes']} adjoint nodes) [{card}]")
+        if not x["tree"]:
+            # two-phase and fused, alternated: K3+K4, K6, K6, K3+K4
+            t6, t34, r = four_times(lambda: AF.fused_adjoint(*args, **kw6),
+                                    lambda: k3k4(x), 20, 20)
+            hold_grads("fused_adjoint", label, AF.fused_adjoint(*args, **kw6),
+                       k3k4(x), against="K3+K4")
+            print(f"time K6 against K3+K4 {label}: K6 {t6:.4f} ms ({r[0]:.4f}, "
+                  f"{r[1]:.4f}); K3+K4 {t34:.4f} ms ({r[2]:.4f}, {r[3]:.4f}); "
+                  f"K6/(K3+K4) {t6 / t34:.3f} [{card}]")
+        if label.startswith("config 3"):
+            times["fused_adjoint"] = (tk, tp)
+            bounds["fused_adjoint"] = b6
+        params = x["params"].to(dev)
+        prep = AF.prepare_fit_inputs(x["camera"], x["cfg"], x["target"],
+                                     device=dev)
+        t_step = step_ms(lambda: AF.fit_value_and_grad(
+            params, x["scene"], x["camera"], x["cfg"], x["target"],
+            prep=prep, mode="fused", device=dev), 10)
+        print(f"time fused step      {label}: fit_value_and_grad(mode="
+              f"\"fused\") {t_step:.4f} ms on the host clock = "
+              f"{P / t_step / 1e3:.1f} M rays/s; K6 {tk:.4f} ms [{card}]")
+        del x, args, params, prep
+        torch.cuda.empty_cache()
+
+    demo1 = dataclasses.replace(demo_cfg, samples=1)
+    k7_cases = [("reference_demo 500^2 d5, one sample", (demo, demo_cam,
+                                                         demo1)),
+                ("fractional_glass 512^2 d3, one sample",
+                 presets.fractional_glass(size=512, depth=3))]
+    for label, preset in k7_cases:
+        x = fit_inputs(K, AF, dev, preset)
+        args7, kw7 = recompute_args(K, x)
+        errs["recompute_adjoint"].append(hold_grads(
+            "recompute_adjoint", label + " (timed)",
+            AF.recompute_adjoint(*args7, **kw7),
+            AF.recompute_adjoint_ref(*args7, **kw7)))
+        tk, tp, r = four_times(lambda: AF.recompute_adjoint(*args7, **kw7),
+                               lambda: AF.recompute_adjoint_ref(*args7, **kw7),
+                               20, 1)
+        w7 = opcount.fused_work(x["tables"], x["v"], x["eye"], tree=x["tree"],
+                                pack=x["akw"]["pack"], g=args7[3], **x["kw"])
+        b7 = opcount.bound_ms(w7["ops"], w7["bytes"])
+        print(f"time recompute_adjoint {label}: kernel {tk:.4f} ms "
+              f"({r[0]:.4f}, {r[1]:.4f}); plain {tp:.2f} ms ({r[2]:.2f}, "
+              f"{r[3]:.2f}); bound {b7[0]:.5f} ms ({b7[1]}: "
+              f"{w7['ops']:.4g} FP32 ops, {w7['bytes']:.4g} B; "
+              f"{w7['live_pixels']} pixels with a cotangent, "
+              f"{w7['adjoint_nodes']} adjoint nodes) [{card}]")
+        if label.startswith("reference_demo"):
+            times["recompute_adjoint"] = (tk, tp)
+            bounds["recompute_adjoint"] = b7
+        del x, args7
+        torch.cuda.empty_cache()
+
+    for label, (preset, camera, target, start, rendered) in \
+            sampled_runs.items():
+        scene, _, cfg = preset
+        params = FitParams.from_scene(scene).to(dev)
+        params.load_state_dict(start.state_dict())
+        t_step = step_ms(lambda: AF.fit_value_and_grad(
+            params, scene, camera, cfg, target, generator=seeded(cfg),
+            device=dev), 3)
+        rays = cfg.width * cfg.height * rendered
+        print(f"time sampled step    {label}: fit_value_and_grad "
+              f"{t_step:.4f} ms on the host clock, {rendered} samples "
+              f"rendered = {rays / t_step / 1e3:.1f} M rays/s [{card}]")
+        del params
+    torch.cuda.empty_cache()
 
     kernels = []
     for k in KERNEL_SOURCES:

@@ -3,9 +3,11 @@
 
 L2 photometric loss plus Adam over sphere centres and radii, light
 positions and material colours, with gradients defined through fixed hit
-topology.  Each step runs the packed forward and the adjoint kernel
-(kernels/adjoint_fused.py) inside a ``torch.autograd.Function``, so the
-parameters are ``nn.Parameter``s that ``torch.optim`` updates.
+topology.  Each step runs the fit kernels (kernels/adjoint_fused.py: the
+packed forward and the adjoint for chain scenes, the one-dispatch tree
+kernel for fractional-transparency scenes) inside a
+``torch.autograd.Function``, so the parameters are ``nn.Parameter``s that
+``torch.optim`` updates.
 
 Core-autodiff fitting (``l2_loss``/``make_fit_step``) waits for the core
 renderer's port, and the sharded steps for ``parallel/`` (ROADMAP.md).
@@ -67,9 +69,9 @@ def default_fit_optimizer(params: FitParams, geom_lr: float = 0.5,
 
 class _KernelLoss(torch.autograd.Function):
     """The L2 loss of the fit kernels as an autograd node: ``forward``
-    runs the packed forward and the adjoint kernel once and returns the
-    loss; ``backward`` hands back the kernel's gradient tables, scaled by
-    the incoming cotangent."""
+    runs them once (``fit_value_and_grad``) and returns the loss;
+    ``backward`` hands back their gradient tables, scaled by the incoming
+    cotangent."""
 
     @staticmethod
     def forward(ctx, value_and_grad: Callable, *leaves):
@@ -90,7 +92,12 @@ def make_fit_step_kernel(scene: FlatScene, camera: Camera,
     step-invariant inputs (primary rays, target, mask) are prepared once,
     here, on ``device`` (default: the GPU; ``"cpu"`` runs the kernels'
     plain versions).  ``params`` must live on that device and be what
-    ``optimizer`` updates (JAX: diff/fit.py::make_fit_step_pallas)."""
+    ``optimizer`` updates (JAX: diff/fit.py::make_fit_step_pallas).
+    Chain scenes step through K3 + K4, fractional-transparency scenes
+    through K6's tree form.  As in the JAX package, the prepared inputs
+    serve single-sample configs only: with a supersampled or jittered
+    config the step raises ``ValueError`` (ROADMAP.md queue 3); such fits
+    go through ``fit_value_and_grad``."""
     device = resolve_device(device)
     camera = camera.to(device)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)

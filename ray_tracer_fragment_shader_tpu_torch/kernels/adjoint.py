@@ -1,6 +1,6 @@
-"""Fixed-topology replay of the bounce chain, in plain PyTorch — the
-counterpart of the JAX package's ``kernels/adjoint.py`` (``_node_math``,
-``replay_render``), chain only.
+"""Fixed-topology replay of the bounce chain and tree, in plain PyTorch —
+the counterpart of the JAX package's ``kernels/adjoint.py`` (``_node_math``,
+``replay_render``, ``replay_render_tree``).
 
 The forward kernel's per-level residuals — hit primitive id, resolved
 material id, per-light lit flag — pin the discrete topology (closest-hit
@@ -8,13 +8,12 @@ winners, shadow occlusion, checker parity, branch selection).  Given them,
 the radiance is a small closed-form function of the scene parameters, which
 ``replay_chain`` recomputes with no intersection sweeps.  Differentiated by
 ``torch.autograd`` it gives the fixed-hit-topology gradient: the plain
-version of the hand-written adjoint kernel (csrc/adjoint_packed.cu), with
-which it shares no code.
+version of the hand-written adjoint kernels (csrc/adjoint_packed.cu,
+csrc/adjoint_fused.cu), with which it shares no code.
 
 Rows are gathered by id (``_take``), not by [P, N] one-hot products, so a
-2048² frame of a 66-primitive scene fits in memory.  The bounce tree's
-replay (``replay_render_tree``) and ``render_image_diff`` are not ported
-yet.
+2048² frame of a 66-primitive scene fits in memory.  ``render_image_diff``
+and ``l2_loss_pallas`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,8 +42,8 @@ def _take(table: torch.Tensor, idx: torch.Tensor,
 def scene_geom(scene: FlatScene,
                config: RenderConfig) -> Dict[str, torch.Tensor]:
     """The replay's inputs from a (compacted) scene: triangle planes and the
-    parameter tables, with the material's transmit flag as
-    ``_node_math`` in the JAX package derives it."""
+    parameter tables, with the material's transmit and reflect flags as
+    ``_node_math`` in the JAX package derives them."""
     der = tri_derived(scene.tri_v0, scene.tri_v1, scene.tri_v2,
                       config.small_number)
     T = scene.mat_transparency
@@ -56,6 +55,7 @@ def scene_geom(scene: FlatScene,
                 mat_specular=scene.mat_specular, mat_transparency=T,
                 mat_refraction=scene.mat_refraction,
                 take_t=t_any & (t_len > config.small_number),
+                refl_ok=torch.any((1.0 - T) != 0.0, -1),
                 light_pos=scene.light_pos, light_color=scene.light_color)
 
 
@@ -70,8 +70,8 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _node_math(geom, o, v, bik, midl, lits, atten: float):
     """Pinned-topology math of one bounce node over [P] rays: the local
     shading colour (throughput not included), the hit point, the secondary
-    directions, the material transparency and transmit flag, the hit mask,
-    and the unit direction and normal (adjoint.py::_node_math)."""
+    directions, the material transparency, transmit and reflect flags, the
+    hit mask, and the unit direction and normal (adjoint.py::_node_math)."""
     nt = geom["tri_n"].shape[0]
     hitm = bik >= 0.0
     is_tri = bik < nt
@@ -114,6 +114,7 @@ def _node_math(geom, o, v, bik, midl, lits, atten: float):
     trn = geom["mat_transparency"][mi]
     rho = geom["mat_refraction"][mi]
     take_t = geom["take_t"][mi]
+    refl_ok = geom["refl_ok"][mi]
 
     # secondary directions
     cosi = _dot(u, n)
@@ -139,7 +140,7 @@ def _node_math(geom, o, v, bik, midl, lits, atten: float):
         local = local + (wgt[:, None] * contrib
                          * geom["light_color"][li][None, :])
     return dict(local=local, p=p, refl=refl, trans=trans, trn=trn,
-                take_t=take_t, hitm=hitm, u=u, n=n)
+                take_t=take_t, refl_ok=refl_ok, hitm=hitm, u=u, n=n)
 
 
 def replay_chain(geom, o, v, bi, mid, lit, *, depth: int,
@@ -163,6 +164,38 @@ def replay_chain(geom, o, v, bi, mid, lit, *, depth: int,
     return color
 
 
+def replay_tree(geom, o, v, bi, mid, lit, *, depth: int,
+                atten: float) -> torch.Tensor:
+    """Differentiable radiance of the full bounce tree -> [P,3], from the
+    rays (o, v) [P,3] and the residual planes ``bi``/``mid`` [K, P] and
+    ``lit`` [L, K, P] of the K = 2^(depth+1)-1 preorder nodes, transmitted
+    subtree before reflected (adjoint.py::replay_render_tree's recursion).
+    A node's colour counts only where it hits; its transmitted child is
+    traced where the material transmits (``take_t``), weighted T, its
+    reflected child where it is not fully transparent (``refl_ok``),
+    weighted 1-T."""
+    counter = [0]
+
+    def node(o, v, level):
+        idx = counter[0]
+        counter[0] += 1
+        nm = _node_math(geom, o, v, bi[idx], mid[idx], lit[:, idx], atten)
+        color = nm["local"]
+        if level < depth:
+            take_t = nm["take_t"][:, None]
+            refl_ok = nm["refl_ok"][:, None]
+            zero = torch.zeros_like(color)
+            ct = node(nm["p"], torch.where(take_t, nm["trans"], zero),
+                      level + 1)
+            cr = node(nm["p"], torch.where(refl_ok, nm["refl"], zero),
+                      level + 1)
+            color = color + torch.where(take_t, nm["trn"] * ct, zero)
+            color = color + torch.where(refl_ok, (1.0 - nm["trn"]) * cr, zero)
+        return torch.where(nm["hitm"][:, None], color, torch.zeros_like(color))
+
+    return node(o, v, 0)
+
+
 def replay_render(scene: FlatScene, camera: Camera, config: RenderConfig,
                   residuals: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Differentiable radiance replay of the bounce chain -> [H,W,3], on
@@ -180,5 +213,28 @@ def replay_render(scene: FlatScene, camera: Camera, config: RenderConfig,
         residuals["bi"].reshape(depth + 1, P),
         residuals["mid"].reshape(depth + 1, P),
         residuals["lit"].reshape(scene.num_lights, depth + 1, P),
+        depth=depth, atten=config.attenuation_factor)
+    return color.reshape(h, w, 3)
+
+
+def replay_render_tree(scene: FlatScene, camera: Camera,
+                       config: RenderConfig,
+                       residuals: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Differentiable radiance replay of the full bounce tree -> [H,W,3]
+    (fractional-transparency scenes), on the scene's device.
+    ``residuals``: ``bi``/``mid`` [K,H,W] and ``lit`` [L,K,H,W] over the
+    K = 2^(depth+1)-1 preorder nodes, as the tree forward's residual mode
+    gives them (kernels/render.py::render_tree_ref), from the same
+    compacted scene."""
+    scene = compact_scene(scene)
+    w, h = config.width, config.height
+    depth = config.max_depth
+    K = 2 ** (depth + 1) - 1
+    o, v = primary_rays(camera, screen_points(camera, w, h))
+    P = v.shape[0]
+    color = replay_tree(
+        scene_geom(scene, config), o, v, residuals["bi"].reshape(K, P),
+        residuals["mid"].reshape(K, P),
+        residuals["lit"].reshape(scene.num_lights, K, P),
         depth=depth, atten=config.attenuation_factor)
     return color.reshape(h, w, 3)

@@ -1,18 +1,29 @@
-"""Loss and gradients of the L2 fit through two hand-written CUDA kernels —
-the counterpart of the JAX package's ``kernels/adjoint_fused.py``, its
-packed two-phase path.
+"""Loss and gradients of the L2 fit through hand-written CUDA kernels — the
+counterpart of the JAX package's ``kernels/adjoint_fused.py``.
 
-Phase 1 is the packed forward (``render.render_packed``, csrc/
-render_chain.cu): the image plus one packed residual plane per bounce level.
-Phase 2 is ``adjoint_packed`` (csrc/adjoint_packed.cu): it forms the L2
-cotangent and the squared-error sum in its prologue, unpacks the residuals,
-and runs the hand-written replay adjoint of the chain, one thread per pixel.
-Each block writes one row of per-entity partial sums, and a second kernel
-adds the rows in a fixed order, so two launches give bit-identical tables.
+Three kernels, each behind a wrapper that counts its launches
+(``render.LAUNCHES``):
 
-``adjoint_packed_ref``, the plain version, differentiates the replay of
-``kernels/adjoint.py`` with ``torch.autograd``; it shares no code with the
-kernel's adjoint.  Gradients are taken through fixed hit topology (hit/miss,
+* ``adjoint_packed`` (K4, csrc/adjoint_packed.cu): phase 2 of the two-phase
+  path, after the packed forward (``render.render_packed``, K3).  It forms
+  the L2 cotangent and the squared-error sum in its prologue, unpacks the
+  residuals and runs the hand-written replay adjoint of the chain.
+* ``fused_adjoint`` (K6, csrc/adjoint_fused.cu): forward, L2 cotangent and
+  loss, and adjoint in one dispatch, the residuals kept in each thread; on
+  the bounce chain or, for fractional-transparency scenes, the full tree.
+  ``mode="fused"``, and the only fit path of tree scenes.
+* ``recompute_adjoint`` (K7, the same source): the forward re-traced and
+  the adjoint run under a cotangent given from outside; the per-sample
+  backward of supersampled and adaptive fits.
+
+One thread runs one pixel.  Each block writes one row of per-entity
+partial sums, and a second kernel adds the rows in a fixed order, so two
+launches give bit-identical tables.
+
+The plain versions (``adjoint_packed_ref``, ``fused_adjoint_ref``,
+``recompute_adjoint_ref``) differentiate the replays of
+``kernels/adjoint.py`` with ``torch.autograd``; they share no code with the
+kernels' adjoint.  Gradients are taken through fixed hit topology (hit/miss,
 checker parity and shadow edges carry none), w.r.t. the ``FitParams``
 leaves: sphere centres and radii, light positions, material colours.
 """
@@ -27,21 +38,26 @@ import torch
 from ..config import RenderConfig
 from ..ops.rays import Camera, primary_rays, screen_points
 from ..scene.flat import FlatScene
-from .adjoint import replay_chain
+from .adjoint import replay_chain, replay_tree
 from .render import (LAUNCHES, SMEM_LIMIT_BYTES, _check, _flat_tables,
-                     compact_scene, pack_scene, pack_widths, render_kwargs,
-                     render_packed, resolve_device, unpack_residuals)
+                     adaptive_step, compact_scene, jitter_source, pack_scene,
+                     pack_widths, render_chain, render_kwargs,
+                     render_packed, render_packed_ref, render_tree,
+                     render_tree_ref, resolve_device, unpack_residuals)
 
 # Diff-table layouts (rows = entity, cols = packed fields)
 SPHD_COLS = 8    # cx cy cz r - - - -
 MATD_COLS = 16   # amb(3) dif(3) spe(3) - - - - - - -
 LIGHTD_COLS = 8  # pos(3) - - - - -
 
-#: deepest chain and most lights the adjoint kernel's per-thread records
-#: hold (csrc/adjoint_packed.cu::kMaxLevels, kMaxLights)
+#: deepest chain and most lights the adjoint kernels' per-thread records
+#: hold (csrc/adjoint_ops.cuh::kMaxLevels, kMaxLights)
 ADJOINT_MAX_DEPTH = 15
 ADJOINT_MAX_LIGHTS = 16
-#: threads a block of the adjoint kernel (csrc/adjoint_packed.cu::kThreads)
+#: deepest bounce tree K6 and K7 hold: 2^6 - 1 = 63 preorder nodes a
+#: thread (csrc/adjoint_ops.cuh::kTreeAdjMaxDepth), the reference's depth
+TREE_ADJOINT_MAX_DEPTH = 5
+#: threads a block of the adjoint kernels (csrc/adjoint_ops.cuh::kAdjThreads)
 ADJOINT_THREADS = 256
 
 
@@ -79,18 +95,47 @@ def table_geom(tables, nl: int, params=None) -> Dict[str, torch.Tensor]:
                 mat_ambient=matd[:, 0:3], mat_diffuse=matd[:, 3:6],
                 mat_specular=matd[:, 6:9], mat_transparency=mat[:, 9:12],
                 mat_refraction=mat[:, 12], take_t=mat[:, 13] > 0.5,
+                refl_ok=mat[:, 14] > 0.5,
                 light_pos=lightd[:nl, 0:3], light_color=light[:nl, 3:6])
 
 
-def replay_packed(tables, v, eye, pk, *, pack: Tuple[float, float], nl: int,
-                  depth: int, atten: float, params=None) -> torch.Tensor:
-    """[P,3] radiance of the chain replayed from packed residuals ``pk``
-    (kernels/adjoint.py::replay_chain), with ``params`` as in
-    ``table_geom``; in the dtype of ``v``."""
-    res = unpack_residuals(pk, nl, pack)
+def replay_grads(tables, v, eye, res: Dict[str, torch.Tensor], g, *,
+                 tree: bool, nl: int, depth: int, atten: float):
+    """Gradient tables (dsph [ns,8], dmat [m,16], dlight [max(nl,1),8]) of
+    ``sum(g * replay)`` by autograd, where ``replay`` is the [P,3] radiance
+    of the chain (``replay_chain``) or the tree (``replay_tree``) replayed
+    from the residual planes ``res`` (bi, mid, lit) along the primary
+    directions ``v`` from ``eye``."""
+    leaves = tuple(t.detach().clone().requires_grad_()
+                   for t in diff_tables(tables, nl))
+    replay = replay_tree if tree else replay_chain
     o = torch.tensor(eye, dtype=v.dtype, device=v.device).expand(v.shape)
-    return replay_chain(table_geom(tables, nl, params), o, v, res["bi"],
-                        res["mid"], res["lit"], depth=depth, atten=atten)
+    with torch.enable_grad():  # also inside an autograd.Function's forward
+        color = replay(table_geom(tables, nl, leaves), o, v, res["bi"],
+                       res["mid"], res["lit"], depth=depth, atten=atten)
+        grads = torch.autograd.grad(color, leaves, grad_outputs=g,
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(t) if d is None else d
+                 for t, d in zip(leaves, grads))
+
+
+def forward_residuals_ref(tables, v, eye, *, tree: bool,
+                          pack: Tuple[float, float], **kw):
+    """Plain forward with its residuals: ([P,3] RGB, dict(bi, mid, lit)),
+    levels of the chain (``render_packed_ref`` unpacked) or preorder nodes
+    of the tree (``render_tree_ref``'s residual mode).  The keyword
+    arguments are ``render_kwargs``'s."""
+    if tree:
+        return render_tree_ref(tables, v, eye, residuals=True, **kw)
+    img, pk = render_packed_ref(tables, v, eye, pack=pack, **kw)
+    return img, unpack_residuals(pk, kw["nl"], pack)
+
+
+def _l2_terms(img, target, mask, g_scale: float):
+    """(masked squared-error sum, cotangent ``g_scale*mask*(img-target)``)."""
+    d_raw = img - target
+    d = d_raw * mask[:, None]
+    return torch.sum(d * d_raw), g_scale * d
 
 
 def adjoint_packed_ref(tables, v, eye, img, target, mask, pk, *,
@@ -100,23 +145,102 @@ def adjoint_packed_ref(tables, v, eye, img, target, mask, pk, *,
     sum ``sum(mask*(img-target)^2)`` and the gradient tables (dsph [ns,8],
     dmat [m,16], dlight [max(nl,1),8]) of the replayed chain under the
     cotangent ``g_scale*mask*(img-target)``, by autograd through
-    ``replay_packed``."""
-    d_raw = img - target
-    d = d_raw * mask[:, None]
-    loss = torch.sum(d * d_raw)
-    leaves = tuple(t.detach().clone().requires_grad_()
-                   for t in diff_tables(tables, nl))
-    with torch.enable_grad():  # also inside an autograd.Function's forward
-        color = replay_packed(tables, v, eye, pk, pack=pack, nl=nl,
-                              depth=depth, atten=atten, params=leaves)
-        grads = torch.autograd.grad(color, leaves, grad_outputs=g_scale * d,
-                                    allow_unused=True)
-    return (loss.detach(),) + tuple(
-        torch.zeros_like(t) if g is None else g
-        for t, g in zip(leaves, grads))
+    ``replay_chain`` on the unpacked ``pk``."""
+    loss, g = _l2_terms(img, target, mask, g_scale)
+    return (loss,) + replay_grads(tables, v, eye,
+                                  unpack_residuals(pk, nl, pack), g,
+                                  tree=False, nl=nl, depth=depth, atten=atten)
 
 
-# ------------------------------------------------------------------ wrapper
+def fused_adjoint_ref(tables, v, eye, target, mask, *, tree: bool,
+                      pack: Tuple[float, float], g_scale: float, **kw):
+    """Plain PyTorch version of K6: the plain forward with its residuals
+    (``forward_residuals_ref``), the masked squared-error sum and the
+    gradient tables under the cotangent ``g_scale*mask*(img-target)`` by
+    autograd through the chain or tree replay.  Returns (loss, dsph, dmat,
+    dlight) as ``adjoint_packed_ref``."""
+    img, res = forward_residuals_ref(tables, v, eye, tree=tree, pack=pack,
+                                     **kw)
+    loss, g = _l2_terms(img, target, mask, g_scale)
+    return (loss,) + replay_grads(tables, v, eye, res, g, tree=tree,
+                                  nl=kw["nl"], depth=kw["depth"],
+                                  atten=kw["atten"])
+
+
+def recompute_adjoint_ref(tables, v, eye, g, *, tree: bool,
+                          pack: Tuple[float, float], **kw):
+    """Plain PyTorch version of K7: the plain forward's residuals, then the
+    gradient tables (dsph, dmat, dlight) under the [P,3] cotangent ``g`` by
+    autograd through the chain or tree replay."""
+    _, res = forward_residuals_ref(tables, v, eye, tree=tree, pack=pack,
+                                   **kw)
+    return replay_grads(tables, v, eye, res, g, tree=tree, nl=kw["nl"],
+                        depth=kw["depth"], atten=kw["atten"])
+
+
+# ----------------------------------------------------------------- wrappers
+
+def _check_planes(v, *planes) -> None:
+    """Raises unless each (name, tensor, shape) is contiguous f32 of that
+    shape on ``v``'s device."""
+    for name, t, shape in planes:
+        if t.device != v.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 {list(shape)} "
+                             f"on {v.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_caps(entry: str, depth: int, nl: int, tree: bool) -> None:
+    cap = TREE_ADJOINT_MAX_DEPTH if tree else ADJOINT_MAX_DEPTH
+    if depth > cap or nl > ADJOINT_MAX_LIGHTS:
+        raise ValueError(f"{entry} holds {'tree' if tree else 'chain'} depth "
+                         f"<= {cap} and <= {ADJOINT_MAX_LIGHTS} lights, got "
+                         f"depth {depth}, {nl} lights (ROADMAP.md, port "
+                         f"decisions)")
+
+
+def _launch_adjoint(entry: str, tables, v, nl: int, *args):
+    """Launches the C entry ``rtfs_<entry>`` on (flat tables, ns, nt, m, nl,
+    *args, partial, num_blocks, stream), then ``rtfs_adjoint_reduce`` over
+    its per-block rows, and counts the launch.  Returns the column sums as
+    (loss, dsph [ns,8], dmat [m,16], dlight [max(nl,1),8])."""
+    if v.device.type != "cuda":
+        raise ValueError(f"{entry}: kernels run on CUDA tensors, got "
+                         f"{v.device}")
+    from . import cuda_build
+    lib = cuda_build.load()
+    flat = _flat_tables(tables, nl)
+    ns, nt, m = (tables[k].shape[0] for k in ("sph", "tri", "mat"))
+    ncols = 1 + 4 * ns + 9 * m + 3 * nl
+    smem = 4 * (flat.numel() + ADJOINT_THREADS // 32 * ncols)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"{entry}: tables and partial sums take {smem} B, "
+                         f"over the {SMEM_LIMIT_BYTES} B of shared memory a "
+                         f"block may use")
+    blocks = max(-(-v.shape[0] // ADJOINT_THREADS), 1)
+    partial = torch.empty((blocks, ncols), dtype=torch.float32,
+                          device=v.device)
+    out = torch.empty(ncols, dtype=torch.float32, device=v.device)
+    with torch.cuda.device(v.device):
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(v.device).cuda_stream)
+        rc = getattr(lib, f"rtfs_{entry}")(flat.data_ptr(), ns, nt, m, nl,
+                                            *args, partial.data_ptr(),
+                                            blocks, stream)
+        cuda_build.check(lib, rc, entry)
+        rc = lib.rtfs_adjoint_reduce(partial.data_ptr(), blocks, ncols,
+                                     out.data_ptr(), stream)
+        cuda_build.check(lib, rc, "adjoint_reduce")
+    LAUNCHES[entry] += 1
+    sphd = out.new_zeros((ns, SPHD_COLS))
+    sphd[:, 0:4] = out[1:1 + 4 * ns].view(ns, 4)
+    matd = out.new_zeros((m, MATD_COLS))
+    matd[:, 0:9] = out[1 + 4 * ns:1 + 4 * ns + 9 * m].view(m, 9)
+    lightd = out.new_zeros((max(nl, 1), LIGHTD_COLS))
+    lightd[:nl, 0:3] = out[1 + 4 * ns + 9 * m:].view(nl, 3)
+    return out[0], sphd, matd, lightd
+
 
 def adjoint_packed(tables, v, eye, img, target, mask, pk, *,
                    pack: Tuple[float, float], g_scale: float, nl: int,
@@ -129,59 +253,70 @@ def adjoint_packed(tables, v, eye, img, target, mask, pk, *,
     tables); CPU tensors run ``adjoint_packed_ref``."""
     _check(tables, v, depth, nl)
     P = v.shape[0]
-    for name, t, shape in (("img", img, (P, 3)), ("target", target, (P, 3)),
-                           ("mask", mask, (P,)), ("pk", pk, (depth + 1, P))):
-        if t.device != v.device or t.dtype != torch.float32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous f32 {list(shape)} "
-                             f"on {v.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+    _check_planes(v, ("img", img, (P, 3)), ("target", target, (P, 3)),
+                  ("mask", mask, (P,)), ("pk", pk, (depth + 1, P)))
     kw = dict(pack=pack, g_scale=g_scale, nl=nl, depth=depth, atten=atten,
               want_trans=want_trans)
     if v.device.type == "cpu":
         return adjoint_packed_ref(tables, v, eye, img, target, mask, pk, **kw)
-    if v.device.type != "cuda":
-        raise ValueError(f"adjoint_packed: kernels run on CUDA tensors, got "
-                         f"{v.device}")
-    if depth > ADJOINT_MAX_DEPTH or nl > ADJOINT_MAX_LIGHTS:
-        raise ValueError(f"adjoint_packed holds depth <= {ADJOINT_MAX_DEPTH} "
-                         f"and <= {ADJOINT_MAX_LIGHTS} lights, got depth "
-                         f"{depth}, {nl} lights")
-    from . import cuda_build
-    lib = cuda_build.load()
-    flat = _flat_tables(tables, nl)
-    ns, nt, m = (tables[k].shape[0] for k in ("sph", "tri", "mat"))
-    ncols = 1 + 4 * ns + 9 * m + 3 * nl
-    smem = 4 * (flat.numel() + ADJOINT_THREADS // 32 * ncols)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"adjoint_packed: tables and partial sums take "
-                         f"{smem} B, over the {SMEM_LIMIT_BYTES} B of shared "
-                         f"memory a block may use")
-    blocks = max(-(-P // ADJOINT_THREADS), 1)
-    partial = torch.empty((blocks, ncols), dtype=torch.float32,
-                          device=v.device)
-    out = torch.empty(ncols, dtype=torch.float32, device=v.device)
-    with torch.cuda.device(v.device):
-        stream = ctypes.c_void_p(
-            torch.cuda.current_stream(v.device).cuda_stream)
-        rc = lib.rtfs_adjoint_packed(
-            flat.data_ptr(), ns, nt, m, nl, v.data_ptr(), img.data_ptr(),
-            target.data_ptr(), mask.data_ptr(), pk.data_ptr(), P,
-            *(float(e) for e in eye), depth, atten, g_scale,
-            float(pack[0]), float(pack[1]), int(want_trans),
-            partial.data_ptr(), blocks, stream)
-        cuda_build.check(lib, rc, "adjoint_packed")
-        rc = lib.rtfs_adjoint_reduce(partial.data_ptr(), blocks, ncols,
-                                     out.data_ptr(), stream)
-        cuda_build.check(lib, rc, "adjoint_reduce")
-    LAUNCHES["adjoint_packed"] += 1
-    sphd = out.new_zeros((ns, SPHD_COLS))
-    sphd[:, 0:4] = out[1:1 + 4 * ns].view(ns, 4)
-    matd = out.new_zeros((m, MATD_COLS))
-    matd[:, 0:9] = out[1 + 4 * ns:1 + 4 * ns + 9 * m].view(m, 9)
-    lightd = out.new_zeros((max(nl, 1), LIGHTD_COLS))
-    lightd[:nl, 0:3] = out[1 + 4 * ns + 9 * m:].view(nl, 3)
-    return out[0], sphd, matd, lightd
+    _check_caps("adjoint_packed", depth, nl, tree=False)
+    return _launch_adjoint(
+        "adjoint_packed", tables, v, nl, v.data_ptr(), img.data_ptr(),
+        target.data_ptr(), mask.data_ptr(), pk.data_ptr(), P,
+        *(float(e) for e in eye), depth, atten, g_scale, float(pack[0]),
+        float(pack[1]), int(want_trans))
+
+
+def _forward_args(eye, kw, tree: bool):
+    """The forward's launch scalars of the K6/K7 C entries: eye, depth,
+    small, atten, white_id, black_id, want_trans, tree."""
+    return (*(float(e) for e in eye), kw["depth"], kw["small"], kw["atten"],
+            int(kw["checker_mats"][0]), int(kw["checker_mats"][1]),
+            int(kw["want_trans"]), int(tree))
+
+
+def fused_adjoint(tables, v, eye, target, mask, *, tree: bool,
+                  pack: Tuple[float, float], g_scale: float, **kw):
+    """K6, forward + L2 loss + adjoint in one dispatch: (loss_sum, dsph,
+    dmat, dlight) from the primary-ray directions ``v`` [P,3], the
+    ``target`` [P,3] and the pixel ``mask`` [P], with cotangent
+    ``g_scale*mask*(img-target)``.  ``tree`` runs the full bounce tree
+    (depth <= ``TREE_ADJOINT_MAX_DEPTH``) in place of the chain.  CUDA
+    tensors launch csrc/adjoint_fused.cu; CPU tensors run
+    ``fused_adjoint_ref``.  ``pack`` is ``pack_widths``'s; the other
+    keyword arguments are ``render_kwargs``'s."""
+    _check(tables, v, kw["depth"], kw["nl"])
+    P = v.shape[0]
+    _check_planes(v, ("target", target, (P, 3)), ("mask", mask, (P,)))
+    _check_caps("fused_adjoint", kw["depth"], kw["nl"], tree)
+    if v.device.type == "cpu":
+        return fused_adjoint_ref(tables, v, eye, target, mask, tree=tree,
+                                 pack=pack, g_scale=g_scale, **kw)
+    return _launch_adjoint(
+        "fused_adjoint", tables, v, kw["nl"], v.data_ptr(), target.data_ptr(),
+        mask.data_ptr(), P, *_forward_args(eye, kw, tree), g_scale,
+        float(pack[0]), float(pack[1]))
+
+
+def recompute_adjoint(tables, v, eye, g, *, tree: bool,
+                      pack: Tuple[float, float], **kw):
+    """K7, forward re-trace + adjoint under the cotangent ``g`` [P,3]: the
+    gradient tables (dsph, dmat, dlight) of ``sum(g * img)`` along the
+    primary-ray directions ``v`` [P,3].  Pixels whose ``g`` is 0 add
+    nothing and are not traced.  ``tree``, ``pack`` and the other keyword
+    arguments as ``fused_adjoint``'s.  CUDA tensors launch
+    csrc/adjoint_fused.cu; CPU tensors run ``recompute_adjoint_ref``."""
+    _check(tables, v, kw["depth"], kw["nl"])
+    P = v.shape[0]
+    _check_planes(v, ("g", g, (P, 3)))
+    _check_caps("recompute_adjoint", kw["depth"], kw["nl"], tree)
+    if v.device.type == "cpu":
+        return recompute_adjoint_ref(tables, v, eye, g, tree=tree, pack=pack,
+                                     **kw)
+    return _launch_adjoint(
+        "recompute_adjoint", tables, v, kw["nl"], v.data_ptr(), g.data_ptr(),
+        P, *_forward_args(eye, kw, tree), float(pack[0]),
+        float(pack[1]))[1:]
 
 
 # ------------------------------------------------------------- host side
@@ -215,13 +350,14 @@ def _check_prep(prep, target) -> None:
 
 def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
                   device=None):
-    """The fit kernels' per-step inputs from a chain-exact scene:
+    """The fit kernels' per-step inputs from a scene:
     ``(scene_c, tables, kw, akw)``, the compacted and detached scene on
-    ``device`` (default: the GPU), its tables, the packed forward's render
+    ``device`` (default: the GPU), its tables, the forwards' render
     keywords (``render_packed(tables, v, eye, pack=akw["pack"], **kw)``)
     and the adjoint's keywords (``adjoint_packed(..., **akw)``), whose
     cotangent scale is that of ``mean((img - target)^2)`` over
-    ``num_pixels`` RGB pixels."""
+    ``num_pixels`` RGB pixels.  K6 and K7 take ``kw`` with ``akw``'s
+    ``pack`` (and K6 its ``g_scale``)."""
     scene = compact_scene(scene.to(resolve_device(device)))
     scene = scene.replace(**{k: t.detach()
                              for k, t in scene.tensors().items()})
@@ -235,6 +371,23 @@ def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
     return scene, tables, kw, akw
 
 
+def _grads_c(scene_c: FlatScene, dsph, dmat, dlight
+             ) -> Dict[str, torch.Tensor]:
+    """The compacted scene's gradient tables by field: sph_center [ns,3],
+    sph_radius [ns], mat_ambient/diffuse/specular [m,3], light_pos [nl,3]."""
+    ns, m, nl = scene_c.num_spheres, scene_c.num_materials, scene_c.num_lights
+    return dict(sph_center=dsph[:ns, 0:3], sph_radius=dsph[:ns, 3],
+                mat_ambient=dmat[:m, 0:3], mat_diffuse=dmat[:m, 3:6],
+                mat_specular=dmat[:m, 6:9], light_pos=dlight[:nl, 0:3])
+
+
+def _prep_for(camera, config, target, prep, device):
+    if prep is None:
+        return prepare_fit_inputs(camera, config, target, device=device)
+    _check_prep(prep, target)
+    return prep
+
+
 def twophase_loss_grads_kernel(scene: FlatScene, camera: Camera,
                                config: RenderConfig, target,
                                prep: Optional[Dict[str, Any]] = None,
@@ -242,28 +395,67 @@ def twophase_loss_grads_kernel(scene: FlatScene, camera: Camera,
     """The two-phase fwd+bwd of a chain-exact scene: the packed forward,
     then the adjoint with its cotangent prologue.  Returns ``(sq_err_sum,
     grads_c)``: the squared-error sum and the compacted scene's gradient
-    tables (sph_center [ns,3], sph_radius [ns], mat_ambient/diffuse/
-    specular [m,3], light_pos [nl,3]) of ``sq_err_sum / (H*W*3)``, as
+    tables (``_grads_c``) of ``sq_err_sum / (H*W*3)``, as
     adjoint_fused.py::twophase_loss_grads_pallas."""
     if not scene.chain_exact:
         raise ValueError("the packed two-phase backward replays the bounce "
-                         "chain; fractional-transparency scenes need the "
-                         "fused tree kernel (K6), not ported yet")
+                         "chain; fractional-transparency scenes take the "
+                         "fused tree kernel (fused_loss_grads_kernel)")
     device = resolve_device(device)
-    if prep is None:
-        prep = prepare_fit_inputs(camera, config, target, device=device)
-    else:
-        _check_prep(prep, target)
+    prep = _prep_for(camera, config, target, prep, device)
     v, eye = prep["v"], prep["eye"]
     scene, tables, kw, akw = kernel_inputs(scene, config, v.shape[0],
                                            device=device)
-    ns, m, nl = scene.num_spheres, scene.num_materials, scene.num_lights
     img, pk = render_packed(tables, v, eye, pack=akw["pack"], **kw)
     loss, dsph, dmat, dlight = adjoint_packed(
         tables, v, eye, img, prep["target"], prep["mask"], pk, **akw)
-    return loss, dict(sph_center=dsph[:ns, 0:3], sph_radius=dsph[:ns, 3],
-                      mat_ambient=dmat[:m, 0:3], mat_diffuse=dmat[:m, 3:6],
-                      mat_specular=dmat[:m, 6:9], light_pos=dlight[:nl, 0:3])
+    return loss, _grads_c(scene, dsph, dmat, dlight)
+
+
+def fused_loss_grads_kernel(scene: FlatScene, camera: Camera,
+                            config: RenderConfig, target,
+                            prep: Optional[Dict[str, Any]] = None,
+                            device=None):
+    """The one-dispatch fwd+loss+bwd (K6): returns ``(sq_err_sum,
+    grads_c)`` as ``twophase_loss_grads_kernel``.  Fractional-transparency
+    scenes take the tree form (forward and adjoint over the preorder nodes
+    of the full bounce tree), as adjoint_fused.py::fused_loss_grads_pallas
+    does."""
+    device = resolve_device(device)
+    prep = _prep_for(camera, config, target, prep, device)
+    v, eye = prep["v"], prep["eye"]
+    scene, tables, kw, akw = kernel_inputs(scene, config, v.shape[0],
+                                           device=device)
+    loss, dsph, dmat, dlight = fused_adjoint(
+        tables, v, eye, prep["target"], prep["mask"],
+        tree=not scene.chain_exact, pack=akw["pack"], g_scale=akw["g_scale"],
+        **kw)
+    return loss, _grads_c(scene, dsph, dmat, dlight)
+
+
+def recompute_grads_kernel(scene: FlatScene, camera: Camera,
+                           config: RenderConfig, g, *, pts=None,
+                           device=None) -> Dict[str, torch.Tensor]:
+    """The backward under an external cotangent ``g`` [H,W,3] (K7): the
+    forward re-traced into each thread and the replay adjoint run at once.
+    Returns the compacted scene's gradient tables (``_grads_c``).
+    ``pts``: screen points [H*W,3] in place of the camera's own (a jittered
+    sample's).  Fractional-transparency scenes take the tree form
+    (adjoint_fused.py::recompute_grads_pallas)."""
+    device = resolve_device(device)
+    camera = camera.to(device)
+    w, h = config.width, config.height
+    if pts is None:
+        pts = screen_points(camera, w, h)
+    _, v = primary_rays(camera, torch.as_tensor(pts, device=device))
+    scene, tables, kw, akw = kernel_inputs(scene, config, w * h,
+                                           device=device)
+    g = torch.as_tensor(g, dtype=torch.float32, device=device)
+    dsph, dmat, dlight = recompute_adjoint(
+        tables, v.contiguous(), camera.eye.tolist(),
+        g.reshape(-1, 3).contiguous(), tree=not scene.chain_exact,
+        pack=akw["pack"], **kw)
+    return _grads_c(scene, dsph, dmat, dlight)
 
 
 def _sphere_take(scene: FlatScene):
@@ -296,39 +488,118 @@ def grads_to_fitparams(params, scene_full: FlatScene,
                 mat_ambient=grads_c["mat_ambient"])
 
 
+def _sampled_value_and_grad(params, scene_full: FlatScene, camera: Camera,
+                            config: RenderConfig, target, *, jitter,
+                            generator, device):
+    """The supersampled and adaptive branches of ``fit_value_and_grad``
+    (adjoint_fused.py:1689-1788).  Forward: S single-sample renders of the
+    jittered screen points on the chain or tree kernel, averaged, or run
+    through the adaptive emulation, which records each sample's accept
+    plane and the divisor (discrete outcomes, pinned like hit ids).
+    Backward: one K7 per sample, with cotangent ``g/S``, or ``g *
+    accept_k / divisor`` when adaptive; the tables summed in sample order.
+    Samples after every pixel has converged add exactly zero and are
+    neither rendered nor differentiated."""
+    device = resolve_device(device)
+    camera = camera.to(device)
+    h, w, S = config.height, config.width, config.samples
+    pts0 = screen_points(camera, w, h)
+    P = pts0.shape[0]
+    scene_c, tables, kw, akw = kernel_inputs(scene_full, config, P,
+                                             device=device)
+    tree = not scene_c.chain_exact
+    render = render_tree if tree else render_chain
+    eye = camera.eye.tolist()
+    jitter_k = jitter_source(config, P, pts0.dtype, device, jitter=jitter,
+                             generator=generator)
+    target = torch.as_tensor(target, dtype=torch.float32,
+                             device=device).reshape(h, w, 3)
+
+    rays, accepts = [], []   # each rendered sample's directions and accepts
+    accum = torch.zeros((h, w, 3), dtype=torch.float32, device=device)
+    if config.adaptive:
+        divisor = torch.full((h, w), float(S), dtype=torch.float32,
+                             device=device)
+        done = torch.zeros((h, w), dtype=torch.bool, device=device)
+    for k in range(S):
+        _, v = primary_rays(camera, pts0 + jitter_k(k))
+        v = v.contiguous()
+        c = render(tables, v, eye, **kw).reshape(h, w, 3)
+        rays.append(v)
+        if not config.adaptive:
+            accum = accum + c
+            continue
+        accum, divisor, done, accept = adaptive_step(
+            k, c, accum, divisor, done, config.small_number)
+        accepts.append(accept)
+        if bool(done.all()):
+            break
+    img = accum / (divisor[..., None] if config.adaptive else S)
+    diff = img - target
+    loss = torch.mean(diff * diff)
+    if config.adaptive:
+        g = (2.0 / diff.numel()) * diff
+        cots = [g * (a.float() / divisor)[..., None] for a in accepts]
+    else:
+        cots = [(2.0 / (diff.numel() * S)) * diff] * len(rays)
+
+    sums = None
+    for v, gk in zip(rays, cots):
+        tabs = recompute_adjoint(tables, v, eye, gk.reshape(P, 3).contiguous(),
+                                 tree=tree, pack=akw["pack"], **kw)
+        sums = tabs if sums is None else tuple(a + b
+                                               for a, b in zip(sums, tabs))
+    return loss, grads_to_fitparams(params, scene_full,
+                                    _grads_c(scene_c, *sums))
+
+
 def fit_value_and_grad(params, scene: FlatScene, camera: Camera,
                        config: RenderConfig, target, *,
                        prep: Optional[Dict[str, Any]] = None,
-                       mode: str = "twophase", device=None):
+                       mode: str = "twophase",
+                       jitter: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       device=None):
     """(loss, d loss / d params) of the L2 photometric loss
-    ``mean((img - target)^2)``, through the packed forward and the adjoint
-    kernel, on ``device`` (default: the GPU; ``"cpu"`` runs their plain
-    versions).  ``params`` is a ``diff.fit.FitParams``; the gradients come
-    back as a dict keyed by its field names.
+    ``mean((img - target)^2)`` through the fit kernels, on ``device``
+    (default: the GPU; ``"cpu"`` runs their plain versions).  ``params`` is
+    a ``diff.fit.FitParams``; the gradients come back as a dict keyed by
+    its field names (adjoint_fused.py::fit_value_and_grad).
 
-    Only the two-phase path of adjoint_fused.py::fit_value_and_grad is
-    ported: ``mode="fused"`` (K6), ``mode="split"`` (K8), supersampled or
-    adaptive configs (K7) and fractional-transparency scenes (the tree
-    kernel of K6) raise ``NotImplementedError`` (ROADMAP.md queue 1
-    item 6)."""
-    if mode == "fused":
-        raise NotImplementedError("mode='fused' needs the one-dispatch "
-                                  "kernel K6 (ROADMAP.md queue 1 item 6)")
+    Single-sample configs: ``mode="twophase"`` runs the packed forward (K3)
+    and the adjoint (K4); ``mode="fused"`` the one-dispatch K6.
+    Fractional-transparency scenes always take K6's tree form.
+    ``mode="split"`` (the residual forward and K8) is not ported and raises
+    ``NotImplementedError`` where the JAX package would take it.
+
+    Supersampled configs (``samples > 1`` or ``force_jitter``), adaptive or
+    not: per sample one forward render (the chain or tree kernel) and one
+    K7 (``_sampled_value_and_grad``).  Sample k's screen points move by
+    ``jitter[k]`` when the [S, H*W, 3] ``jitter`` is given (e.g. the JAX
+    package's draws), else by draws from ``generator`` (default: seeded
+    with ``config.seed``), as in ``render_image_kernel``.  ``prep=``
+    (``prepare_fit_inputs``) serves the single-sample paths only; with a
+    jittered config it raises ``ValueError``, as in the JAX package."""
+    if mode not in ("twophase", "fused", "split"):
+        raise ValueError(f"unknown fit mode {mode!r}")
+    scene_full = params.into_scene(scene)
+    use_jitter = config.samples > 1 or config.force_jitter
+    if prep is not None and (use_jitter
+                             or (mode == "split" and scene_full.chain_exact)):
+        raise ValueError("prep= is only supported on the twophase/fused "
+                         "paths (no supersampling)")
+    if use_jitter:
+        return _sampled_value_and_grad(params, scene_full, camera, config,
+                                       target, jitter=jitter,
+                                       generator=generator, device=device)
+    if not scene_full.chain_exact:
+        mode = "fused"  # tree scenes: the bounce tree's fwd+adjoint, K6
     if mode == "split":
         raise NotImplementedError("mode='split' needs the residual forward "
                                   "and K8 (ROADMAP.md queue 1 item 6)")
-    if mode != "twophase":
-        raise ValueError(f"unknown fit mode {mode!r}")
-    if config.samples > 1 or config.force_jitter or config.adaptive:
-        raise NotImplementedError("supersampled and adaptive fits need the "
-                                  "per-sample backward K7 (ROADMAP.md "
-                                  "queue 1 item 6)")
-    scene_full = params.into_scene(scene)
-    if not scene_full.chain_exact:
-        raise NotImplementedError("fractional-transparency scenes need the "
-                                  "fused tree kernel K6 (ROADMAP.md queue 1 "
-                                  "item 6)")
-    sq_sum, grads_c = twophase_loss_grads_kernel(
-        scene_full, camera, config, target, prep=prep, device=device)
+    impl = (twophase_loss_grads_kernel if mode == "twophase"
+            else fused_loss_grads_kernel)
+    sq_sum, grads_c = impl(scene_full, camera, config, target, prep=prep,
+                           device=device)
     denom = float(config.height * config.width * 3)
     return sq_sum / denom, grads_to_fitparams(params, scene_full, grads_c)

@@ -1,7 +1,10 @@
-// Device code of the hand-written replay adjoint (adjoint_packed.cu): one
-// bounce node's primal record and its reverse sweep, per pixel.  The
-// counterparts of the JAX package's kernels/adjoint_fused.py::_node_primal
-// (:274-362), _snell_reverse (:365-384) and _node_reverse (:71-262).
+// Device code of the hand-written replay adjoints (adjoint_packed.cu,
+// adjoint_fused.cu): one bounce node's primal record and its reverse sweep,
+// per pixel, the counterparts of the JAX package's
+// kernels/adjoint_fused.py::_node_primal (:274-362), _snell_reverse
+// (:365-384) and _node_reverse (:71-262); the chain's and the tree's
+// adjoint over them (_adjoint_tile_body :387-635, _adjoint_tree_tile_body
+// :638-793); and the fixed-order block sums of the gradient columns.
 //
 // A node here is a hit node: the adjoint kernel skips levels at and after a
 // lane's miss, whose every term is masked to exactly zero in the JAX code.
@@ -11,8 +14,8 @@
 //
 // Rounding.  node_primal evaluates the replay in the plain version's order
 // (kernels/adjoint.py::_node_math), operation for operation: IEEE sqrtf, a
-// reciprocal by IEEE division where it divides, and, because
-// adjoint_packed.cu is built with -fmad=false, no fused multiply-add.  A
+// reciprocal by IEEE division where it divides, and, because every kernel
+// is built with -fmad=false, no fused multiply-add.  A
 // chain of convex mirrors amplifies the rounding of a far sphere's
 // disc = ud^2 - |d|^2 + r^2 (a difference of numbers near 1e5) from bounce
 // to bounce; rounded otherwise than the plain version, the replay can land
@@ -274,6 +277,270 @@ __device__ __forceinline__ void node_reverse(
   }
   *obx = ox_b; *oby = oy_b; *obz = oz_b;
   *vbx = vx_b; *vby = vy_b; *vbz = vz_b;
+}
+
+// ---- what the adjoint kernels (adjoint_packed.cu, adjoint_fused.cu) share --
+
+constexpr int kMaxLevels = 16;  // chain depth <= 15 (adjoint_fused.py)
+constexpr int kMaxLights = 16;
+// Deepest tree the tree adjoint holds (adjoint_fused.py::TREE_ADJOINT_MAX_
+// DEPTH): the reference's own depth, 2^6 - 1 = 63 preorder nodes.
+constexpr int kTreeAdjMaxDepth = 5;
+constexpr int kTreeAdjMaxNodes = (2 << kTreeAdjMaxDepth) - 1;
+constexpr int kAdjThreads = 256;
+constexpr int kAdjWarps = kAdjThreads / 32;
+
+struct AdjParams {
+  Params prm;  // tables, counts, depth, atten, eye (and the forward's)
+  float g_scale;
+  int bw_bi, bw_mid;  // pack widths (kernels/render.py::pack_widths)
+  int ncols;          // 1 + 4 ns + 9 m + 3 nl
+};
+
+// The pinned topology of a packed word (bi+1) + mid*bw_bi + lits*bw_bi*bw_mid.
+__device__ __forceinline__ NodeConst unpack_word(unsigned q, int bw_bi,
+                                                 int bw_mid) {
+  NodeConst c;
+  c.bik = static_cast<int>(q % bw_bi) - 1;
+  c.mid = static_cast<int>((q / bw_bi) % bw_mid);
+  c.lits = q / (bw_bi * bw_mid);
+  return c;
+}
+
+// One thread's parameter cotangents: per hit node (a record), its sphere and
+// material cotangents with its primitive and material ids; per light, the
+// light-position cotangent summed over the nodes.
+template <int N>
+struct GradRecs {
+  int n;
+  int bik[N], mid[N];
+  float dsph[N][4], dmat[N][9];
+  float d_lp[kMaxLights][3];
+
+  __device__ void init(int nl) {
+    n = 0;
+    for (int li = 0; li < nl; ++li)
+      d_lp[li][0] = d_lp[li][1] = d_lp[li][2] = 0.0f;
+  }
+  // A new record for node c, its cotangents zeroed.
+  __device__ int add(const NodeConst& c) {
+    bik[n] = c.bik;
+    mid[n] = c.mid;
+    for (int k = 0; k < 4; ++k) dsph[n][k] = 0.0f;
+    for (int k = 0; k < 9; ++k) dmat[n][k] = 0.0f;
+    return n++;
+  }
+};
+
+// Replay adjoint of the bounce chain of one pixel (the JAX
+// _adjoint_tile_body, :387-635): L hit levels with topology cst[0..L-1],
+// primary direction v from the eye, image cotangent g.  A primal pass keeps
+// each level's input ray (o, v) and throughput only; the reverse pass, from
+// the last hit level down to 0, re-derives the level's record from its
+// (o, v) (the JAX kernel's ov_at route) and applies the node adjoint.
+// Level lv's cotangents go to record lv.
+template <bool WANT_TRANS>
+__device__ __forceinline__ void chain_adjoint(const Scene& s, const Params& prm,
+                                              const NodeConst* cst, int L,
+                                              float vx, float vy, float vz,
+                                              const float g[3],
+                                              GradRecs<kMaxLevels>& out) {
+  // ---- primal pass: each level's input ray and throughput ----
+  float O[kMaxLevels][3], V[kMaxLevels][3], T[kMaxLevels][3];
+  {
+    float ox = prm.eye_x, oy = prm.eye_y, oz = prm.eye_z;
+    float thr[3] = {1.0f, 1.0f, 1.0f};
+    for (int lv = 0; lv < L; ++lv) {
+      O[lv][0] = ox; O[lv][1] = oy; O[lv][2] = oz;
+      V[lv][0] = vx; V[lv][1] = vy; V[lv][2] = vz;
+      T[lv][0] = thr[0]; T[lv][1] = thr[1]; T[lv][2] = thr[2];
+      if (lv == L - 1) break;
+      NodeRec r;
+      node_primal(s, cst[lv], ox, oy, oz, vx, vy, vz, WANT_TRANS, &r);
+      const float* mt = s.mat + cst[lv].mid * MAT_COLS;
+      const bool take_t = WANT_TRANS && mt[13] > 0.5f;
+      for (int ch = 0; ch < 3; ++ch)
+        thr[ch] *= take_t ? mt[9 + ch] : 1.0f - mt[9 + ch];
+      ox = r.px; oy = r.py; oz = r.pz;
+      vx = take_t ? r.tx : r.rx;
+      vy = take_t ? r.ty : r.ry;
+      vz = take_t ? r.tz : r.rz;
+    }
+  }
+
+  // ---- reverse pass, last hit level down to 0 ----
+  for (int lv = 0; lv < L; ++lv) out.add(cst[lv]);
+  float pbx = 0.0f, pby = 0.0f, pbz = 0.0f;  // cotangent of the next o
+  float vbx = 0.0f, vby = 0.0f, vbz = 0.0f;  // cotangent of the next v
+  for (int lv = L - 1; lv >= 0; --lv) {
+    const bool has_child = lv < prm.depth;
+    NodeRec r;
+    node_primal(s, cst[lv], O[lv][0], O[lv][1], O[lv][2], V[lv][0],
+                V[lv][1], V[lv][2], WANT_TRANS && has_child, &r);
+    Cot b = {pbx, pby, pbz, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+             0.0f, 0.0f, 0.0f, 0.0f};
+    if (has_child) {
+      // v_next = take_t ? t : r (the chain's child select)
+      const bool take_t =
+          WANT_TRANS && s.mat[cst[lv].mid * MAT_COLS + 13] > 0.5f;
+      if constexpr (WANT_TRANS) {
+        snell_reverse(r, take_t ? vbx : 0.0f, take_t ? vby : 0.0f,
+                      take_t ? vbz : 0.0f, &b);
+      }
+      if (!take_t) { b.rx = vbx; b.ry = vby; b.rz = vbz; }
+    }
+    const float g3[3] = {T[lv][0] * g[0], T[lv][1] * g[1], T[lv][2] * g[2]};
+    node_reverse(s, cst[lv], r, g3, b, out.dsph[lv], out.dmat[lv], out.d_lp,
+                 &pbx, &pby, &pbz, &vbx, &vby, &vbz);
+  }
+}
+
+// One node of the tree adjoint's stack: its input ray, weight W (the
+// product over its ancestor edges of T on a transmitted edge and 1-T on a
+// reflected one), preorder index, level and topology; how many children it
+// has visited; and the cotangents its children returned: of their common
+// origin (its hit point) and of each child's direction.
+struct TreeFrame {
+  float o[3], v[3], w[3];
+  int idx, level, stage;  // stage: children visited, 0..2
+  NodeConst c;
+  float ob[3], tb[3], rb[3];
+};
+
+// Replay adjoint of the full bounce tree of one pixel (the JAX
+// _adjoint_tree_tile_body, :638-793), from the packed topology words[] of
+// its 2^(depth+1)-1 preorder nodes (a node that misses holds bi = -1).
+// The interleaved primal/reverse recursion becomes an explicit stack of at
+// most depth+1 frames: a node runs its primal, visits its transmitted then
+// its reflected subtree, applies snell_reverse to the children's direction
+// cotangents and then its own node_reverse.  A child is visited only where
+// its gate (take_t on the transmitted edge, refl_ok on the reflected one,
+// both on a hit) is set and it hits: any other child adds exactly zero.
+// Each hit node's cotangents go to one record, in the order nodes finish.
+template <bool WANT_TRANS>
+__device__ __forceinline__ void tree_adjoint(const Scene& s, const Params& prm,
+                                             const unsigned* words, int bw_bi,
+                                             int bw_mid, float vx, float vy,
+                                             float vz, const float g[3],
+                                             GradRecs<kTreeAdjMaxNodes>& out) {
+  const int depth = prm.depth;
+  TreeFrame st[kTreeAdjMaxDepth + 1];
+  int sp = 0;
+  {
+    TreeFrame& f = st[sp++];
+    f.o[0] = prm.eye_x; f.o[1] = prm.eye_y; f.o[2] = prm.eye_z;
+    f.v[0] = vx; f.v[1] = vy; f.v[2] = vz;
+    f.w[0] = f.w[1] = f.w[2] = 1.0f;
+    f.idx = 0; f.level = 0; f.stage = 0;
+    f.c = unpack_word(words[0], bw_bi, bw_mid);
+    for (int k = 0; k < 3; ++k) f.ob[k] = f.tb[k] = f.rb[k] = 0.0f;
+    if (f.c.bik < 0) return;  // the primary ray misses: nothing to add
+  }
+  while (sp > 0) {
+    TreeFrame& f = st[sp - 1];
+    const float* mt = s.mat + f.c.mid * MAT_COLS;
+    if (f.level < depth && f.stage < 2) {
+      // visit the next child: the transmitted one, then the reflected one
+      const bool trans = f.stage == 0;
+      ++f.stage;
+      if (!(mt[trans ? 13 : 14] > 0.5f)) continue;  // gate 0
+      const int cidx = trans ? f.idx + 1 : f.idx + (1 << (depth - f.level));
+      const NodeConst cc = unpack_word(words[cidx], bw_bi, bw_mid);
+      if (cc.bik < 0) continue;  // the child misses
+      NodeRec r;
+      node_primal(s, f.c, f.o[0], f.o[1], f.o[2], f.v[0], f.v[1], f.v[2],
+                  WANT_TRANS, &r);
+      TreeFrame& ch = st[sp++];
+      ch.o[0] = r.px; ch.o[1] = r.py; ch.o[2] = r.pz;
+      ch.v[0] = trans ? r.tx : r.rx;
+      ch.v[1] = trans ? r.ty : r.ry;
+      ch.v[2] = trans ? r.tz : r.rz;
+      for (int k = 0; k < 3; ++k) {
+        ch.w[k] = f.w[k] * (trans ? mt[9 + k] : 1.0f - mt[9 + k]);
+        ch.ob[k] = ch.tb[k] = ch.rb[k] = 0.0f;
+      }
+      ch.idx = cidx; ch.level = f.level + 1; ch.stage = 0;
+      ch.c = cc;
+      continue;
+    }
+    // reverse the node, its children's cotangents in hand
+    const bool has_child = f.level < depth;
+    NodeRec r;
+    node_primal(s, f.c, f.o[0], f.o[1], f.o[2], f.v[0], f.v[1], f.v[2],
+                WANT_TRANS && has_child, &r);
+    Cot b = {f.ob[0], f.ob[1], f.ob[2], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+             f.rb[0], f.rb[1], f.rb[2], 0.0f};
+    if constexpr (WANT_TRANS) {
+      if (has_child) snell_reverse(r, f.tb[0], f.tb[1], f.tb[2], &b);
+    }
+    const int k = out.add(f.c);
+    const float g3[3] = {f.w[0] * g[0], f.w[1] * g[1], f.w[2] * g[2]};
+    float ob[3], vb[3];
+    node_reverse(s, f.c, r, g3, b, out.dsph[k], out.dmat[k], out.d_lp, &ob[0],
+                 &ob[1], &ob[2], &vb[0], &vb[1], &vb[2]);
+    if (--sp > 0) {
+      TreeFrame& pa = st[sp - 1];
+      float* dir_b = pa.stage == 1 ? pa.tb : pa.rb;
+      for (int q = 0; q < 3; ++q) {
+        pa.ob[q] += ob[q];
+        dir_b[q] = vb[q];
+      }
+    }
+  }
+}
+
+// Sum over the 32 lanes; every lane gets the same, order-fixed value.
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// The block's sums of every gradient column, in a fixed order: per thread,
+// the records of each entity in record order; then a warp butterfly; then
+// the warps in turn.  Writes one row [loss | sph(ns x 4) | mat(m x 9) |
+// light(nl x 3)] of ncols to `row`.  wsum is [kAdjWarps][ncols] of shared
+// memory.  Every thread of the block must call it.
+template <int N>
+__device__ __forceinline__ void block_column_sums(const Scene& s, float loss,
+                                                  const GradRecs<N>& gr,
+                                                  float* wsum, int ncols,
+                                                  float* __restrict__ row) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int col = 0;
+  auto put = [&](float x) {
+    x = warp_sum(x);
+    if (lane == 0) wsum[warp * ncols + col] = x;
+    ++col;
+  };
+  put(loss);
+  for (int i = 0; i < s.ns; ++i) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q = 0; q < gr.n; ++q)
+      if (gr.bik[q] == s.nt + i)
+        for (int k = 0; k < 4; ++k) acc[k] += gr.dsph[q][k];
+    for (int k = 0; k < 4; ++k) put(acc[k]);
+  }
+  for (int j = 0; j < s.m; ++j) {
+    float acc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q = 0; q < gr.n; ++q)
+      if (gr.mid[q] == j)
+        for (int k = 0; k < 9; ++k) acc[k] += gr.dmat[q][k];
+    for (int k = 0; k < 9; ++k) put(acc[k]);
+  }
+  for (int li = 0; li < s.nl; ++li)
+    for (int k = 0; k < 3; ++k) put(gr.d_lp[li][k]);
+  __syncthreads();
+  for (int c = threadIdx.x; c < ncols; c += kAdjThreads) {
+    float acc = 0.0f;
+    for (int w = 0; w < kAdjWarps; ++w) acc += wsum[w * ncols + c];
+    row[c] = acc;
+  }
+}
+
+// Shared memory of an adjoint kernel's block: the tables, then wsum.
+inline size_t adjoint_smem_bytes(const AdjParams& ap) {
+  return (table_floats(ap.prm) + kAdjWarps * ap.ncols) * sizeof(float);
 }
 
 }  // namespace rtfs

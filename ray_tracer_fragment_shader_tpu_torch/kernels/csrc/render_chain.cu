@@ -33,46 +33,18 @@ render_chain_kernel(const float* __restrict__ tables, Params prm,
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= num_pixels) return;
 
-  float ox = prm.eye_x, oy = prm.eye_y, oz = prm.eye_z;
-  float vx = v[3 * p], vy = v[3 * p + 1], vz = v[3 * p + 2];
-  float thr[3] = {1.0f, 1.0f, 1.0f};
   float col[3] = {0.0f, 0.0f, 0.0f};
-  int excl = -1;
-  int level = 0;
-  for (; level <= prm.depth; ++level) {
-    Surf f;
-    int bi;
-    const float* mt;
-    Dirs d;
-    unsigned lit_bits;
-    if (!trace_node<WANT_TRANS>(s, ox, oy, oz, vx, vy, vz, excl, thr, col,
-                                &f, &bi, &mt, &d, &lit_bits))
-      break;  // a miss adds zero from here on
-    if constexpr (PACKED) {
-      // (bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid: exact f32 integers
-      // (render_pallas.py:690-695)
-      prm.pk[static_cast<size_t>(level) * num_pixels + p] =
-          static_cast<float>(bi + 1) + static_cast<float>(f.mid) * prm.bw_bi +
-          static_cast<float>(lit_bits) * (prm.bw_bi * prm.bw_mid);
-    }
-    // child ray selection (chain-exact): transmitted if traced, else
-    // reflected if the material is not fully transparent
-    const bool take_t = mt[13] > 0.5f;
-    vx = take_t ? d.tx : d.rx;
-    vy = take_t ? d.ty : d.ry;
-    vz = take_t ? d.tz : d.rz;
-    thr[0] *= take_t ? mt[9] : 1.0f - mt[9];
-    thr[1] *= take_t ? mt[10] : 1.0f - mt[10];
-    thr[2] *= take_t ? mt[11] : 1.0f - mt[11];
-    const bool branch =
-        take_t ? (vx * vx + vy * vy + vz * vz > 0.0f) : (mt[14] > 0.5f);
-    if (!branch) {
-      ++level;  // this level is stored; the next ones are dead
-      break;
-    }
-    ox = f.px; oy = f.py; oz = f.pz;
-    excl = bi;
-  }
+  int level = chain_forward<WANT_TRANS>(
+      s, prm, v[3 * p], v[3 * p + 1], v[3 * p + 2], col,
+      [&](int lv, int bi, int mid, unsigned lit_bits) {
+        if constexpr (PACKED) {
+          // (bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid: exact f32 integers
+          // (render_pallas.py:690-695)
+          prm.pk[static_cast<size_t>(lv) * num_pixels + p] =
+              static_cast<float>(bi + 1) + static_cast<float>(mid) * prm.bw_bi +
+              static_cast<float>(lit_bits) * (prm.bw_bi * prm.bw_mid);
+        }
+      });
   if constexpr (PACKED) {
     // the miss level and every later one: bi + 1 = 0, mid = 0 (the JAX
     // blend's miss values) and every lit bit set (a dead lane's shadow

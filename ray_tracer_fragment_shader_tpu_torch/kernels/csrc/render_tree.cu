@@ -10,22 +10,14 @@
 // Bound: compute, as the chain kernel (render_chain.cu), times the number of
 // live nodes.  The recursion becomes an explicit per-thread stack of depth+1
 // entries visited in the same preorder (transmitted subtree before
-// reflected), so the colour sums in the same order as the JAX kernel.  A node
-// that misses, or a child whose weight gate is 0, adds exactly zero and is
-// not visited; on a chain-exact scene the tree then costs what the chain
-// does.  This first version aims to be right; it is not tuned.
+// reflected; tile_ops.cuh::tree_forward), so the colour sums in the same
+// order as the JAX kernel.  A node that misses, or a child whose weight gate
+// is 0, adds exactly zero and is not visited; on a chain-exact scene the
+// tree then costs what the chain does.  This first version aims to be
+// right; it is not tuned.
 #include "tile_ops.cuh"
 
 namespace rtfs {
-
-// Deepest tree the stack holds (kernels/render.py::TREE_MAX_DEPTH).
-constexpr int kTreeMaxDepth = 10;
-
-struct Node {
-  float ox, oy, oz, vx, vy, vz;
-  float thr[3];
-  int excl, level;
-};
 
 template <bool WANT_TRANS>
 __global__ void __launch_bounds__(256)
@@ -38,45 +30,8 @@ render_tree_kernel(const float* __restrict__ tables, Params prm,
   if (p >= num_pixels) return;
 
   float col[3] = {0.0f, 0.0f, 0.0f};
-  Node stack[kTreeMaxDepth + 1];
-  int sp = 0;
-  stack[sp++] = Node{prm.eye_x, prm.eye_y, prm.eye_z,
-                     v[3 * p], v[3 * p + 1], v[3 * p + 2],
-                     {1.0f, 1.0f, 1.0f}, -1, 0};
-  while (sp > 0) {
-    const Node nd = stack[--sp];
-    Surf f;
-    int bi;
-    const float* mt;
-    Dirs d;
-    unsigned lit_bits;
-    if (!trace_node<WANT_TRANS>(s, nd.ox, nd.oy, nd.oz, nd.vx, nd.vy, nd.vz,
-                                nd.excl, nd.thr, col, &f, &bi, &mt, &d,
-                                &lit_bits))
-      continue;  // a miss zeroes both children
-    if (nd.level == prm.depth) continue;
-    // gates of the transmitted (T != 0 and |T| > SMALL, :1238) and
-    // reflected (opacity != 0, :1243) children; pushed reflected first so
-    // the transmitted subtree is visited first
-    const float take_f = mt[13];
-    const float refl_f = mt[14];
-    if (refl_f != 0.0f) {
-      stack[sp++] = Node{f.px, f.py, f.pz,
-                         d.rx * refl_f, d.ry * refl_f, d.rz * refl_f,
-                         {nd.thr[0] * (1.0f - mt[9]) * refl_f,
-                          nd.thr[1] * (1.0f - mt[10]) * refl_f,
-                          nd.thr[2] * (1.0f - mt[11]) * refl_f},
-                         bi, nd.level + 1};
-    }
-    if (take_f != 0.0f) {
-      stack[sp++] = Node{f.px, f.py, f.pz,
-                         d.tx * take_f, d.ty * take_f, d.tz * take_f,
-                         {nd.thr[0] * mt[9] * take_f,
-                          nd.thr[1] * mt[10] * take_f,
-                          nd.thr[2] * mt[11] * take_f},
-                         bi, nd.level + 1};
-    }
-  }
+  tree_forward<WANT_TRANS>(s, prm, v[3 * p], v[3 * p + 1], v[3 * p + 2], col,
+                           [](int, int, int, unsigned) {});
   out[3 * p] = col[0];
   out[3 * p + 1] = col[1];
   out[3 * p + 2] = col[2];

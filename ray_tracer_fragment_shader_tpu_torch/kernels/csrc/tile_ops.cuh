@@ -1,7 +1,8 @@
-// Device code shared by the chain and tree render kernels (render_chain.cu,
-// render_tree.cu): the per-pixel counterparts of the JAX package's
-// kernels/render_pallas.py::_make_tile_ops (intersect_all, hit_attrs,
-// mat_attrs, secondary_dirs, shade).
+// Device code shared by the render and fit kernels (render_chain.cu,
+// render_tree.cu, adjoint_fused.cu): the per-pixel counterparts of the JAX
+// package's kernels/render_pallas.py::_make_tile_ops (intersect_all,
+// hit_attrs, mat_attrs, secondary_dirs, shade), _chain_forward and
+// _tree_forward.
 //
 // One thread traces one pixel.  The scene tables (the host's pack_scene
 // layouts, kernels/render.py) are copied into dynamic shared memory at block
@@ -9,8 +10,10 @@
 // those reads are broadcasts.  Ids (primitive, material) are ints here; the
 // TPU kernel carried them as f32 planes.  Division is IEEE (nvcc's default
 // -prec-div=true), where the TPU used an approximate reciprocal plus a
-// Newton step; rsqrtf and fma contraction move a few decision-boundary
-// pixels against the plain PyTorch version.
+// Newton step.  Every kernel is built with -fmad=false (kernels/
+// cuda_build.py): rounded as the plain PyTorch version rounds, the forwards
+// pick its hit topology, so the fit kernels' forwards and the render
+// kernels' agree bit for bit (PERF.md, PR 3).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -350,6 +353,113 @@ __device__ __forceinline__ bool trace_node(const Scene& s, float ox, float oy,
   *d = secondary_dirs<WANT_TRANS>(r, *f, (*mt)[12]);
   *lit_bits = shade<!WANT_TRANS>(s, *f, *bi, hitm, r, *d, *mt, thr, col);
   return true;
+}
+
+// ---- the chain and the tree (render_pallas.py::_chain_forward, _tree_forward)
+
+// Deepest tree the per-thread stacks hold (kernels/render.py::TREE_MAX_DEPTH).
+constexpr int kTreeMaxDepth = 10;
+
+// The bounce chain of one pixel, primary direction v from the eye: adds each
+// level's shading to col and calls sink(level, bi, mid, lit_bits) at each
+// level that hits.  The chain ends at a miss, and after a level whose chosen
+// child is not traced.  Returns the number of levels hit.
+template <bool WANT_TRANS, typename Sink>
+__device__ __forceinline__ int chain_forward(const Scene& s, const Params& prm,
+                                             float vx, float vy, float vz,
+                                             float col[3], Sink&& sink) {
+  float ox = prm.eye_x, oy = prm.eye_y, oz = prm.eye_z;
+  float thr[3] = {1.0f, 1.0f, 1.0f};
+  int excl = -1;
+  int level = 0;
+  for (; level <= prm.depth; ++level) {
+    Surf f;
+    int bi;
+    const float* mt;
+    Dirs d;
+    unsigned lit_bits;
+    if (!trace_node<WANT_TRANS>(s, ox, oy, oz, vx, vy, vz, excl, thr, col,
+                                &f, &bi, &mt, &d, &lit_bits))
+      break;  // a miss adds zero from here on
+    sink(level, bi, f.mid, lit_bits);
+    // child ray selection (chain-exact): transmitted if traced, else
+    // reflected if the material is not fully transparent
+    const bool take_t = mt[13] > 0.5f;
+    vx = take_t ? d.tx : d.rx;
+    vy = take_t ? d.ty : d.ry;
+    vz = take_t ? d.tz : d.rz;
+    thr[0] *= take_t ? mt[9] : 1.0f - mt[9];
+    thr[1] *= take_t ? mt[10] : 1.0f - mt[10];
+    thr[2] *= take_t ? mt[11] : 1.0f - mt[11];
+    const bool branch =
+        take_t ? (vx * vx + vy * vy + vz * vz > 0.0f) : (mt[14] > 0.5f);
+    if (!branch) return level + 1;  // the next levels are dead
+    ox = f.px; oy = f.py; oz = f.pz;
+    excl = bi;
+  }
+  return level;
+}
+
+struct TreeNode {
+  float ox, oy, oz, vx, vy, vz;
+  float thr[3];
+  int excl, level, idx;  // idx: the node's preorder index
+};
+
+// The full bounce tree of one pixel (MySdlApplication.cpp:1230-1248): at
+// every hit a transmitted child weighted by the transparency T and a
+// reflected child weighted by the opacity 1-T, down to prm.depth.  The
+// recursion is an explicit per-thread stack of depth+1 entries, visited in
+// preorder (transmitted subtree first), so the colour sums in the JAX
+// kernel's order.  Calls sink(idx, bi, mid, lit_bits) at each node that hits,
+// idx its preorder index among the 2^(depth+1)-1 nodes: the transmitted
+// child of node idx at level l is idx+1, the reflected one idx+2^(depth-l).
+// A node that misses, or a child whose weight gate is 0, adds exactly zero
+// and is not visited.
+template <bool WANT_TRANS, typename Sink>
+__device__ __forceinline__ void tree_forward(const Scene& s, const Params& prm,
+                                             float vx, float vy, float vz,
+                                             float col[3], Sink&& sink) {
+  TreeNode stack[kTreeMaxDepth + 1];
+  int sp = 0;
+  stack[sp++] = TreeNode{prm.eye_x, prm.eye_y, prm.eye_z, vx, vy, vz,
+                         {1.0f, 1.0f, 1.0f}, -1, 0, 0};
+  while (sp > 0) {
+    const TreeNode nd = stack[--sp];
+    Surf f;
+    int bi;
+    const float* mt;
+    Dirs d;
+    unsigned lit_bits;
+    if (!trace_node<WANT_TRANS>(s, nd.ox, nd.oy, nd.oz, nd.vx, nd.vy, nd.vz,
+                                nd.excl, nd.thr, col, &f, &bi, &mt, &d,
+                                &lit_bits))
+      continue;  // a miss zeroes both children
+    sink(nd.idx, bi, f.mid, lit_bits);
+    if (nd.level == prm.depth) continue;
+    // gates of the transmitted (T != 0 and |T| > SMALL, :1238) and
+    // reflected (opacity != 0, :1243) children; pushed reflected first so
+    // the transmitted subtree is visited first
+    const float take_f = mt[13];
+    const float refl_f = mt[14];
+    if (refl_f != 0.0f) {
+      stack[sp++] = TreeNode{f.px, f.py, f.pz,
+                             d.rx * refl_f, d.ry * refl_f, d.rz * refl_f,
+                             {nd.thr[0] * (1.0f - mt[9]) * refl_f,
+                              nd.thr[1] * (1.0f - mt[10]) * refl_f,
+                              nd.thr[2] * (1.0f - mt[11]) * refl_f},
+                             bi, nd.level + 1,
+                             nd.idx + (1 << (prm.depth - nd.level))};
+    }
+    if (take_f != 0.0f) {
+      stack[sp++] = TreeNode{f.px, f.py, f.pz,
+                             d.tx * take_f, d.ty * take_f, d.tz * take_f,
+                             {nd.thr[0] * mt[9] * take_f,
+                              nd.thr[1] * mt[10] * take_f,
+                              nd.thr[2] * mt[11] * take_f},
+                             bi, nd.level + 1, nd.idx + 1};
+    }
+  }
 }
 
 // The signature both render kernels share.

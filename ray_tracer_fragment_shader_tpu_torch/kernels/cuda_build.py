@@ -20,14 +20,14 @@ import time
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("tile_ops.cuh", "render_chain.cu", "render_tree.cu",
-           "adjoint_ops.cuh", "adjoint_packed.cu")
+           "adjoint_ops.cuh", "adjoint_packed.cu", "adjoint_fused.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
+#: -fmad=false: every kernel rounds as its plain version does, with no fused
+#: multiply-add, so the forwards pick the plain version's hit topology and
+#: the adjoints replay it (csrc/adjoint_ops.cuh, csrc/tile_ops.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: flags of one source only: the adjoint rounds as its plain version does,
-#: with no fused multiply-add (csrc/adjoint_ops.cuh)
-SOURCE_FLAGS = {"adjoint_packed.cu": ("-fmad=false",)}
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _RENDER_ARGS = ([_P] + [_I] * 4        # tables; ns nt m nl
@@ -47,6 +47,17 @@ _ENTRIES = {
                             + [_I] + [_F] * 4 + [_I] + [_P, _I, _P]),
     # partial num_blocks num_cols out stream
     "rtfs_adjoint_reduce": [_P, _I, _I, _P, _P],
+    # tables; ns nt m nl; v target mask; num_pixels; eye; depth; small
+    # atten; white_id black_id want_trans tree; g_scale bw_bi bw_mid;
+    # partial num_blocks; stream
+    "rtfs_fused_adjoint": ([_P] + [_I] * 4 + [_P] * 3 + [_I] + [_F] * 3
+                           + [_I] + [_F] * 2 + [_I] * 4 + [_F] * 3
+                           + [_P, _I, _P]),
+    # as rtfs_fused_adjoint with the cotangent g for target and mask, and
+    # no g_scale
+    "rtfs_recompute_adjoint": ([_P] + [_I] * 4 + [_P] * 2 + [_I] + [_F] * 3
+                               + [_I] + [_F] * 2 + [_I] * 4 + [_F] * 2
+                               + [_P, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -67,8 +78,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
-                       + repr(sorted(SOURCE_FLAGS.items())).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -96,8 +106,8 @@ def _build(path: str) -> None:
     cus = [s for s in SOURCES if s.endswith(".cu")]
     objs = [f"{tmp}.{s}.o" for s in cus]
     t0 = time.perf_counter()
-    log = _run_all([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s, ()), "-c", "-o",
-                     o, os.path.join(CSRC_DIR, s)] for s, o in zip(cus, objs)])
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o,
+                     os.path.join(CSRC_DIR, s)] for s, o in zip(cus, objs)])
     log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
     for o in objs:
         os.remove(o)

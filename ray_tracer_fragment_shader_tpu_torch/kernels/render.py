@@ -56,9 +56,11 @@ TREE_MAX_DEPTH = 10
 SMEM_LIMIT_BYTES = 232448
 
 #: kernel launches per wrapper, counted where each launches its kernel
-#: (``adjoint_packed`` lives in kernels/adjoint_fused.py)
+#: (``adjoint_packed``, ``fused_adjoint`` and ``recompute_adjoint`` live in
+#: kernels/adjoint_fused.py)
 LAUNCHES: Dict[str, int] = {"render_chain": 0, "render_tree": 0,
-                             "render_packed": 0, "adjoint_packed": 0}
+                             "render_packed": 0, "adjoint_packed": 0,
+                             "fused_adjoint": 0, "recompute_adjoint": 0}
 
 
 def reset_launch_counts() -> None:
@@ -461,19 +463,37 @@ def render_packed_ref(tables, v, eye, *, pack: Tuple[float, float], **kw):
     return _chain_ref(tables, v, eye, pack=pack, **kw)
 
 
+def n_tree_nodes(depth: int) -> int:
+    """Preorder nodes of the full bounce tree of ``depth``: 2^(depth+1)-1
+    (render_pallas.py::n_tree_nodes)."""
+    return 2 ** (depth + 1) - 1
+
+
 def render_tree_ref(tables, v, eye, *, nl: int, depth: int, small: float,
                     atten: float, checker_mats: Tuple[int, int],
-                    want_trans: bool) -> torch.Tensor:
+                    want_trans: bool, residuals: bool = False):
     """Plain PyTorch version of the tree kernel: the full binary bounce tree
     in preorder, transmitted child (weight T) before reflected (weight 1-T)
-    (render_pallas.py::_tree_forward)."""
+    (render_pallas.py::_tree_forward) -> [P,3] RGB.  With ``residuals``
+    returns (RGB, residuals): ``bi`` (hit primitive id, -1 where the node's
+    ray misses or is masked to zero) and ``mid`` [K, P], ``lit`` [nl, K, P],
+    over the K = ``n_tree_nodes(depth)`` preorder nodes, as f32 (the layout
+    kernels/adjoint.py::replay_render_tree reads; ``_tree_forward``'s
+    ``res_refs``).  A node whose ray is masked to zero holds what a dead
+    TPU lane stores: bi = -1, mid = 0 and every lit flag 1."""
     P = v.shape[0]
     ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
                     checker_mats=checker_mats, all_opaque=not want_trans)
+    res = dict(bi=[], mid=[], lit=[]) if residuals else None
 
     def node(o, d, thr, excl, alive, level, col):
-        hitm, bi, p, mats, dirs, col, _ = ops.node(*o, *d, excl, alive, thr,
-                                                   col, want_trans)
+        lits = [] if residuals else None
+        hitm, bi, p, mats, dirs, col, mid = ops.node(*o, *d, excl, alive, thr,
+                                                     col, want_trans, lits)
+        if residuals:
+            res["bi"].append(torch.where(hitm, bi, -1.0))
+            res["mid"].append(mid)
+            res["lit"].append([lit.float() for lit in lits])
         if level == depth:
             return col
         hit_f = hitm.float()
@@ -494,7 +514,15 @@ def render_tree_ref(tables, v, eye, *, nl: int, depth: int, small: float,
                ops.full(-1.0), torch.ones(P, dtype=torch.bool,
                                           device=v.device),
                0, (ops.full(0.0),) * 3)
-    return torch.stack(col, -1)
+    img = torch.stack(col, -1)
+    if not residuals:
+        return img
+    K = n_tree_nodes(depth)
+    lit = (torch.stack([torch.stack([res["lit"][k][li] for k in range(K)])
+                        for li in range(nl)]) if nl
+           else v.new_zeros((0, K, P)))
+    return img, dict(bi=torch.stack(res["bi"]), mid=torch.stack(res["mid"]),
+                     lit=lit)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -694,48 +722,67 @@ def render_image_kernel(scene: FlatScene, camera, config: RenderConfig, *,
     if not (config.samples > 1 or config.force_jitter):
         return one_sample(pts)
     S = config.samples
-    if jitter is not None:
-        jitter = torch.as_tensor(jitter, dtype=pts.dtype, device=device)
-        if tuple(jitter.shape) != (S, P, 3):
-            raise ValueError(f"jitter must be [{S}, {P}, 3], got "
-                             f"{tuple(jitter.shape)}")
-    elif generator is None:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(config.seed)
-
-    def jitter_k(k):
-        if jitter is not None:
-            return jitter[k]
-        return sample_jitter(generator, P, config.jitter_scale,
-                             dtype=pts.dtype).to(device)
-
+    jitter_k = jitter_source(config, P, pts.dtype, device, jitter=jitter,
+                             generator=generator)
     if not config.adaptive:
         total = torch.zeros((h, w, 3), dtype=torch.float32, device=device)
         for k in range(S):
             total = total + one_sample(pts + jitter_k(k))
         return total / S
 
-    # Adaptive supersampler emulation (MySdlApplication.cpp:1294-1311):
-    # sample k joins the sum while the pixel is unconverged; convergence
-    # tests |k*avg_after - (k+1)*avg_before| < SMALL*k*(k+1); the divisor is
-    # the loop variable at exit.  Once every pixel has converged the later
-    # samples change nothing and are not rendered.
-    small = np.float32(config.small_number)
+    # Once every pixel has converged the later samples change nothing and
+    # are not rendered.
     accum = torch.zeros((h, w, 3), dtype=torch.float32, device=device)
     divisor = torch.full((h, w), float(S), dtype=torch.float32,
                          device=device)
     done = torch.zeros((h, w), dtype=torch.bool, device=device)
     for k in range(S):
-        kf = float(k)
-        c = one_sample(pts + jitter_k(k))
-        accum_after = torch.where(done[..., None], accum, accum + c)
-        d = kf * accum_after - (kf + 1.0) * accum
-        diff = torch.sqrt(torch.sum(d * d, -1))
-        bar = float(small * np.float32(kf) * np.float32(kf + 1.0))
-        newly_done = ~done & (diff < bar)
-        divisor = torch.where(newly_done, kf, divisor)
-        done = done | newly_done
-        accum = accum_after
+        accum, divisor, done, _ = adaptive_step(
+            k, one_sample(pts + jitter_k(k)), accum, divisor, done,
+            config.small_number)
         if bool(done.all()):
             break
     return accum / divisor[..., None]
+
+
+def jitter_source(config: RenderConfig, num_points: int, dtype, device, *,
+                  jitter: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+    """``k -> [P,3]`` jitter of sample k of a supersampled frame:
+    ``jitter[k]`` of the given [S, P, 3] tensor (e.g. the JAX package's
+    draws, for per-pixel parity), else a fresh draw from ``generator``
+    (default: one on ``device`` seeded with ``config.seed``), one per call
+    in sample order."""
+    S = config.samples
+    if jitter is not None:
+        jitter = torch.as_tensor(jitter, dtype=dtype, device=device)
+        if tuple(jitter.shape) != (S, num_points, 3):
+            raise ValueError(f"jitter must be [{S}, {num_points}, 3], got "
+                             f"{tuple(jitter.shape)}")
+        return lambda k: jitter[k]
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(config.seed)
+    return lambda k: sample_jitter(generator, num_points, config.jitter_scale,
+                                   dtype=dtype).to(device)
+
+
+def adaptive_step(k: int, c: torch.Tensor, accum: torch.Tensor,
+                  divisor: torch.Tensor, done: torch.Tensor, small: float):
+    """Sample k (image ``c`` [H,W,3]) of the reference's adaptive
+    supersampler (MySdlApplication.cpp:1294-1311), emulated exactly as the
+    JAX package does: the sample joins the sum while the pixel is
+    unconverged; convergence tests |k*avg_after - (k+1)*avg_before| <
+    SMALL*k*(k+1); the divisor is the loop variable at exit.  Returns the
+    new (accum, divisor, done) and the sample's accept plane (the pixels it
+    joined: ``~done`` before it)."""
+    kf = float(k)
+    accept = ~done
+    accum_after = torch.where(done[..., None], accum, accum + c)
+    d = kf * accum_after - (kf + 1.0) * accum
+    diff = torch.sqrt(torch.sum(d * d, -1))
+    sm = np.float32(small)
+    bar = float(sm * np.float32(kf) * np.float32(kf + 1.0))
+    newly_done = accept & (diff < bar)
+    divisor = torch.where(newly_done, kf, divisor)
+    return accum_after, divisor, done | newly_done, accept

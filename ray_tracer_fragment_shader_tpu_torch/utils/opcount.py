@@ -1,6 +1,7 @@
 """The work a kernel call needs on its inputs: FP32 operations and device
 bytes, for the roofline bound that ``chip_smoke.py`` reports beside each
-kernel's time.
+kernel's time (K2/K5 ``forward_work``, K4 ``adjoint_work``, K6/K7
+``fused_work``).
 
 Operations are counted by hand from the CUDA sources, as written: each
 ``+ - * /``, ``sqrtf`` and ``rsqrtf`` is one, comparisons, selects and
@@ -23,7 +24,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..kernels.render import _PlainOps, unpack_residuals
+from ..kernels.render import (_PlainOps, render_packed_ref,
+                              render_tree_ref, unpack_residuals)
 
 #: H100 SXM peaks (NVIDIA data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -51,6 +53,7 @@ REV_TRI = 49         # node_reverse, triangle hit
 REV_SPH = 96         # node_reverse, sphere hit
 REV_SNELL = 22       # snell_reverse
 SCATTER = 13         # one hit level's sphere and material sums
+TREE_CHILD = 3       # adjoint_ops.cuh::tree_adjoint, one child's weight
 
 
 def bound_ms(ops: float, nbytes: float) -> Tuple[float, str]:
@@ -155,45 +158,146 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
     return dict(work, ops=float(flops), bytes=float(nbytes))
 
 
-def adjoint_work(tables, img, target, mask, pk, *, pack, nl: int,
-                 depth: int, want_trans: bool) -> Dict[str, float]:
-    """FP32 operations and bytes of one csrc/adjoint_packed.cu call on these
-    inputs: the prologue for every pixel; for the pixels with a nonzero
-    cotangent, the primal and reverse sweeps of each hit level before the
-    first miss, with their lit lights, and one add per gradient term.
-    Bytes: img, target and mask of every pixel; for the pixels with a
-    nonzero cotangent, the residual levels up to the first miss (or all
-    depth+1) and, where level 0 hits, the ray; the gradient tables once.
-    The kernel's column reduction is not counted: it is overhead of this
-    design, not work the function needs."""
-    P = img.shape[0]
-    nt = tables["tri"].shape[0]
-    g_live = ((img - target) * mask[:, None] != 0.0).any(-1)
-    res = unpack_residuals(pk, nl, pack)
-    hit = res["bi"] >= 0.0
+def _chain_adjoint_ops(bi, lit, g_live, *, nt: int, depth: int,
+                       want_trans: bool) -> Tuple[float, torch.Tensor]:
+    """FP32 operations of adjoint_ops.cuh::chain_adjoint over the pixels
+    with a nonzero cotangent (``g_live``), from the residual planes ``bi``
+    [depth+1, P] and ``lit`` [nl, depth+1, P]: the primal and reverse
+    sweeps of each hit level before the first miss, with their lit lights,
+    and one add per gradient term.  Also returns ``lead``, the [depth+1, P]
+    mask of those levels."""
+    hit = bi >= 0.0
     lead = torch.cumprod(hit.int(), 0).bool() & g_live[None, :]
-    is_tri = res["bi"] < nt
-    level = torch.arange(depth + 1, device=pk.device)[:, None]
+    is_tri = bi < nt
+    level = torch.arange(depth + 1, device=bi.device)[:, None]
     # the primal pass visits every hit level but the last; the reverse all
     fwd = lead & (level < lead.sum(0)[None, :] - 1)
-    lits = (res["lit"] > 0.5) & lead[None]      # [nl, D+1, P]
+    lits = (lit > 0.5) & lead[None]      # [nl, D+1, P]
     n_tri = int((lead & is_tri).sum()) + int((fwd & is_tri).sum())
     n_sph = int((lead & ~is_tri).sum()) + int((fwd & ~is_tri).sum())
     n_hit = int(lead.sum())
     # levels with a child (lv < depth) take the Snell record and reverse
     n_snell = (int(fwd.sum()) + int(lead[:depth].sum())) if want_trans else 0
     n_snell_rev = int(lead[:depth].sum()) if want_trans else 0
-    flops = (PROLOGUE * P + PRIMAL * (n_tri + n_sph)
+    flops = (PRIMAL * (n_tri + n_sph)
              + PRIMAL_TRI * n_tri + PRIMAL_SPH * n_sph
              + PRIMAL_SNELL * n_snell + REV_SNELL * n_snell_rev
              + REV_LIGHT * int(lits.sum()) + REV_TAIL * n_hit
              + REV_TRI * int((lead & is_tri).sum())
              + REV_SPH * int((lead & ~is_tri).sum()) + SCATTER * n_hit)
+    return float(flops), lead
+
+
+def _tree_adjoint_ops(bi, lit, g_live, *, nt: int, depth: int,
+                      want_trans: bool) -> Tuple[float, int]:
+    """FP32 operations of adjoint_ops.cuh::tree_adjoint over the pixels with
+    a nonzero cotangent, from the residual planes ``bi`` [K, P] and ``lit``
+    [nl, K, P] of the K preorder nodes (a node that hits was reached: a
+    child whose gate is 0 or whose parent missed holds bi = -1).  Per hit
+    node: one primal and one reverse sweep with its lit lights (the Snell
+    record and its reverse where it has children), one more primal and a
+    weight per child it visits, one add per gradient term.  Also returns
+    the number of hit nodes."""
+    levels = []
+
+    def walk(level):
+        levels.append(level)
+        if level < depth:
+            walk(level + 1)
+            walk(level + 1)
+    walk(0)
+    hit = (bi >= 0.0) & g_live[None, :]
+    is_tri = bi < nt
+    flops = 0
+    n_hit = 0
+    for k, level in enumerate(levels):
+        h = hit[k]
+        n, n_t = int(h.sum()), int((h & is_tri[k]).sum())
+        n_hit += n
+        n_lit = int(((lit[:, k] > 0.5) & h[None]).sum())
+        snell = want_trans and level < depth
+        flops += (n * (PRIMAL + REV_TAIL + SCATTER) + n_t * (PRIMAL_TRI
+                  + REV_TRI) + (n - n_t) * (PRIMAL_SPH + REV_SPH)
+                  + REV_LIGHT * n_lit
+                  + (n * (PRIMAL_SNELL + REV_SNELL) if snell else 0))
+        if level < depth:
+            # the children it visits: k+1 (transmitted), k+2^(depth-level)
+            for c in (k + 1, k + 2 ** (depth - level)):
+                v = h & hit[c]
+                n_c, n_ct = int(v.sum()), int((v & is_tri[k]).sum())
+                flops += (n_c * (PRIMAL + TREE_CHILD
+                                 + (PRIMAL_SNELL if want_trans else 0))
+                          + n_ct * PRIMAL_TRI + (n_c - n_ct) * PRIMAL_SPH)
+    return float(flops), n_hit
+
+
+def adjoint_work(tables, img, target, mask, pk, *, pack, nl: int,
+                 depth: int, want_trans: bool) -> Dict[str, float]:
+    """FP32 operations and bytes of one csrc/adjoint_packed.cu call on these
+    inputs: the prologue for every pixel; for the pixels with a nonzero
+    cotangent, the chain adjoint (``_chain_adjoint_ops``).  Bytes: img,
+    target and mask of every pixel; for the pixels with a nonzero
+    cotangent, the residual levels up to the first miss (or all depth+1)
+    and, where level 0 hits, the ray; the gradient tables once.  The
+    kernel's column reduction is not counted: it is overhead of this
+    design, not work the function needs."""
+    P = img.shape[0]
+    nt = tables["tri"].shape[0]
+    g_live = ((img - target) * mask[:, None] != 0.0).any(-1)
+    res = unpack_residuals(pk, nl, pack)
+    flops, lead = _chain_adjoint_ops(res["bi"], res["lit"], g_live, nt=nt,
+                                     depth=depth, want_trans=want_trans)
     n_lead = lead.sum(0)
     pk_levels = int(torch.clamp(n_lead + 1, max=depth + 1)[g_live].sum())
-    ncols = 1 + 4 * tables["sph"].shape[0] + 9 * tables["mat"].shape[0] \
-        + 3 * nl
     nbytes = (P * (12 + 12 + 4) + 4 * pk_levels
-              + 12 * int((n_lead > 0).sum()) + 4 * ncols)
-    return dict(hit_levels=n_hit, live_pixels=int(g_live.sum()),
-                ops=float(flops), bytes=float(nbytes))
+              + 12 * int((n_lead > 0).sum()) + 4 * _ncols(tables, nl))
+    return dict(hit_levels=int(lead.sum()), live_pixels=int(g_live.sum()),
+                ops=PROLOGUE * P + flops, bytes=float(nbytes))
+
+
+def _ncols(tables, nl: int) -> int:
+    """Gradient columns: the loss, 4 per sphere, 9 per material, 3 per
+    light."""
+    return 1 + 4 * tables["sph"].shape[0] + 9 * tables["mat"].shape[0] \
+        + 3 * nl
+
+
+def fused_work(tables, v, eye, *, tree: bool, pack, target=None, mask=None,
+               g=None, **kw) -> Dict[str, float]:
+    """FP32 operations and bytes of one csrc/adjoint_fused.cu call on these
+    inputs: K6 (``target`` and ``mask`` given) or K7 (the cotangent ``g``
+    given), on the chain or the tree (``tree``).  K6: the forward of every
+    pixel (``forward_work``), the prologue, and the adjoint of the pixels
+    whose cotangent is nonzero; it reads ray, target and mask and writes
+    no image.  K7: the forward and the adjoint of the pixels whose ``g`` is
+    nonzero only; it reads every pixel's ``g`` and their rays.  Both write
+    the gradient tables once; the column reduction is not counted.  The
+    keyword arguments are ``render_kwargs``'s."""
+    P = v.shape[0]
+    nt = tables["tri"].shape[0]
+    nl, depth, want_trans = kw["nl"], kw["depth"], kw["want_trans"]
+    live = (g != 0.0).any(-1) if g is not None else None
+    vf = v if g is None else v[live]
+    fwd = forward_work(tables, vf, eye, tree=tree, **kw)
+    if tree:
+        img, res = render_tree_ref(tables, vf, eye, residuals=True, **kw)
+    else:
+        img, pk = render_packed_ref(tables, vf, eye, pack=pack, **kw)
+        res = unpack_residuals(pk, nl, pack)
+    if g is None:
+        live = ((img - target) * mask[:, None] != 0.0).any(-1)
+        g_live = live
+        flops = fwd["ops"] + PROLOGUE * P
+        nbytes = P * (12 + 12 + 4)
+    else:
+        g_live = torch.ones(vf.shape[0], dtype=torch.bool, device=v.device)
+        flops = fwd["ops"]
+        nbytes = P * 12 + 12 * vf.shape[0]
+    count = _tree_adjoint_ops if tree else _chain_adjoint_ops
+    adj, hits = count(res["bi"], res["lit"], g_live, nt=nt, depth=depth,
+                      want_trans=want_trans)
+    if not tree:
+        hits = int(hits.sum())
+    return dict(fwd, ops=flops + adj, bytes=float(nbytes
+                                                  + 4 * _ncols(tables, nl)),
+                live_pixels=int(g_live.sum()), adjoint_nodes=hits)

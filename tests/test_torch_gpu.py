@@ -1,7 +1,8 @@
 """The CUDA kernels on the card, against their plain PyTorch versions on
 the same inputs.  Every test here needs a CUDA GPU and skips without one.
 The file imports no JAX, so it runs on a machine without it (the fit
-kernels' tests at the end hold K3 and K4 against their plain versions):
+kernels' tests at the end hold K3, K4, K6 and K7 against their plain
+versions):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -212,3 +213,116 @@ def test_fit_entry_points_run_on_the_card_by_default(cuda):
     torch.cuda.synchronize()
     assert loss.is_cuda and all(g.is_cuda for g in grads.values())
     assert K.LAUNCHES["render_packed"] == K.LAUNCHES["adjoint_packed"] == 1
+
+
+# ---- the one-dispatch fit kernels: K6 (fused) and K7 (recompute) ---------
+
+def fused_case(name, device):
+    """K6/K7 inputs on a 64x64 chain or tree scene with its sphere centres
+    moved by 1.5 (target: the unperturbed render): (tables, v, eye, kw,
+    target, mask, akw, tree)."""
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import FitParams
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    make = dict(full_reflective=lambda: presets.full_reflective(size=N,
+                                                                depth=3),
+                glass_chain=lambda: presets.glass_chain(size=N, depth=3),
+                fractional_glass=lambda: presets.fractional_glass(size=N,
+                                                                  depth=3))
+    scene, cam, cfg = make[name]()
+    camera = Camera.from_config(cam, N, N, device=device)
+    target = K.render_image_kernel(scene, camera, cfg, device=device)
+    params = FitParams.from_scene(scene)
+    with torch.no_grad():
+        params.sph_center += 1.5
+    prep = AF.prepare_fit_inputs(camera, cfg, target, device=device)
+    sc, tables, kw, akw = AF.kernel_inputs(params.into_scene(scene), cfg,
+                                           N * N, device=device)
+    return (tables, prep["v"], prep["eye"], kw, prep["target"], prep["mask"],
+            akw, not sc.chain_exact)
+
+
+def assert_tables_close(got, want):
+    for g, w in zip(got, want):
+        err = ((g - w).abs().max() / w.abs().max()).item()
+        assert err <= 1e-3, err
+
+
+@pytest.mark.parametrize("name", ["full_reflective", "glass_chain",
+                                  "fractional_glass"])
+def test_fused_kernel_matches_plain_and_is_deterministic(cuda, name):
+    """K6: loss within 1e-5 relative, each gradient table within 1e-3 of
+    max|plain|, two launches bit-identical; on chain scenes it equals
+    K3 + K4 on the same inputs (every kernel rounds without fma)."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    tables, v, eye, kw, target, mask, akw, tree = fused_case(name, cuda)
+    kw6 = dict(tree=tree, pack=akw["pack"], g_scale=akw["g_scale"], **kw)
+    before = K.LAUNCHES["fused_adjoint"]
+    a = AF.fused_adjoint(tables, v, eye, target, mask, **kw6)
+    b = AF.fused_adjoint(tables, v, eye, target, mask, **kw6)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_adjoint"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref = AF.fused_adjoint_ref(tables, v, eye, target, mask, **kw6)
+    assert a[0].item() == pytest.approx(ref[0].item(), rel=1e-5)
+    assert_tables_close(a[1:], ref[1:])
+    if not tree:
+        img, pk = K.render_packed(tables, v, eye, pack=akw["pack"], **kw)
+        q = AF.adjoint_packed(tables, v, eye, img, target, mask, pk, **akw)
+        assert a[0].item() == pytest.approx(q[0].item(), rel=1e-5)
+        assert_tables_close(a[1:], q[1:])
+
+
+@pytest.mark.parametrize("name", ["full_reflective", "glass_chain",
+                                  "fractional_glass"])
+def test_recompute_kernel_matches_plain_and_is_deterministic(cuda, name):
+    """K7 under the L2 cotangent of the moved scene's render: each table
+    within 1e-3 of max|plain|, two launches bit-identical."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    tables, v, eye, kw, target, _, akw, tree = fused_case(name, cuda)
+    render = K.render_tree if tree else K.render_chain
+    g = (akw["g_scale"] * (render(tables, v, eye, **kw) - target)).contiguous()
+    kw7 = dict(tree=tree, pack=akw["pack"], **kw)
+    before = K.LAUNCHES["recompute_adjoint"]
+    a = AF.recompute_adjoint(tables, v, eye, g, **kw7)
+    b = AF.recompute_adjoint(tables, v, eye, g, **kw7)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["recompute_adjoint"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert_tables_close(a, AF.recompute_adjoint_ref(tables, v, eye, g, **kw7))
+
+
+def test_fused_wrappers_refuse_other_devices(cuda):
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    tables, v, eye, kw, target, mask, akw, tree = fused_case(
+        "fractional_glass", cuda)
+    with pytest.raises(ValueError, match="mask must be"):
+        AF.fused_adjoint(tables, v, eye, target, mask.cpu(), tree=tree,
+                         pack=akw["pack"], g_scale=akw["g_scale"], **kw)
+    with pytest.raises(ValueError, match="g must be"):
+        AF.recompute_adjoint(tables, v, eye, target.cpu(), tree=tree,
+                             pack=akw["pack"], **kw)
+    with pytest.raises(ValueError, match="table"):
+        AF.recompute_adjoint({k: t.cpu() for k, t in tables.items()}, v, eye,
+                             target, tree=tree, pack=akw["pack"], **kw)
+
+
+def test_tree_and_sampled_fits_run_on_the_card_by_default(cuda):
+    from ray_tracer_fragment_shader_tpu_torch import (FitParams,
+                                                      fit_value_and_grad)
+    scene, cam, cfg = presets.fractional_glass(size=N, depth=2)
+    camera = Camera.from_config(cam, N, N)
+    target = K.render_image_kernel(scene, camera, cfg)
+    params = FitParams.from_scene(scene).to(cuda)
+    K.reset_launch_counts()
+    loss, grads = fit_value_and_grad(params, scene, camera, cfg, target)
+    ss = dataclasses.replace(cfg, samples=2)
+    loss2, _ = fit_value_and_grad(params, scene, camera, ss, target)
+    torch.cuda.synchronize()
+    assert loss.is_cuda and loss2.is_cuda
+    assert all(g.is_cuda for g in grads.values())
+    assert K.LAUNCHES["fused_adjoint"] == 1
+    assert K.LAUNCHES["recompute_adjoint"] == K.LAUNCHES["render_tree"] == 2

@@ -1,7 +1,8 @@
 """The port never imports JAX: importing every module of
 ray_tracer_fragment_shader_tpu_torch leaves jax and flax out of
 sys.modules, and the kernel wrappers hold no try/except that could turn a
-failed build or launch into a silent fallback."""
+failed build or launch into a silent fallback; every CUDA source is built,
+and each of its C entries hands its launch's error code back."""
 import os
 import pkgutil
 import re
@@ -39,6 +40,28 @@ def test_kernel_paths_have_no_fallback():
         with open(os.path.join(PORT_DIR, "kernels", name)) as f:
             src = f.read()
         assert not re.search(r"^\s*(try\s*:|except\b)", src, re.M), name
+
+
+def test_kernel_sources_are_built_and_report_their_launches():
+    from ray_tracer_fragment_shader_tpu_torch.kernels import cuda_build
+    csrc = os.path.join(PORT_DIR, "kernels", "csrc")
+    names = sorted(os.listdir(csrc))
+    assert set(names) == set(cuda_build.SOURCES), names
+    entries = set()
+    for name in names:
+        with open(os.path.join(csrc, name)) as f:
+            src = f.read()
+        assert not re.search(r"\b(try|catch)\b", src), name
+        # each C entry returns the launch's cudaError_t (directly or through
+        # the launcher that checks it)
+        for entry, body in re.findall(
+                r'extern "C" int (rtfs_\w+)\(.*?\)\s*\{(.*?)\n\}', src,
+                re.S):
+            entries.add(entry)
+            if entry != "rtfs_error_string":
+                assert re.search(r"cudaGetLastError|launch_render|"
+                                 r"launch_fused", body), entry
+    assert entries == set(cuda_build._ENTRIES), entries
 
 
 def test_chip_smoke_imports_no_jax():

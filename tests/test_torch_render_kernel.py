@@ -187,7 +187,8 @@ def test_cpu_tensors_never_launch_kernels():
     K.render_image_kernel(scene.replace(chain_exact=False), cam, cfg,
                           device="cpu")
     assert K.LAUNCHES == {"render_chain": 0, "render_tree": 0,
-                          "render_packed": 0, "adjoint_packed": 0}
+                          "render_packed": 0, "adjoint_packed": 0,
+                          "fused_adjoint": 0, "recompute_adjoint": 0}
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
