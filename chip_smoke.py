@@ -148,27 +148,6 @@ def compare(img, ref, budget):
                 plain_mean=mr, mean_rel=rel, budget=budget, ok=ok)
 
 
-def time_ms(fn, reps):
-    """CUDA-event time of one call of ``fn``, averaged over ``reps``.  A
-    device-side sleep queued first lets the host enqueue every launch
-    before the start event fires, so a kernel shorter than its host-side
-    launch cost is timed on the device alone (without it the events time
-    the host's launch gaps).  ``fn`` that synchronises (the plain
-    versions) is timed with its host cost, as a caller sees it."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10_000_000)  # ~5 ms of SM cycles
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def rel_err(got, ref):
     """max|got - ref| / max|ref| (0 where ref is all 0 and got equals it)."""
     scale = ref.abs().max().item()
@@ -356,6 +335,7 @@ def main():
     from ray_tracer_fragment_shader_tpu_torch.ops.rays import (
         Camera, primary_rays, screen_points)
     from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    from ray_tracer_fragment_shader_tpu_torch.utils.timing import time_ms
     dev = torch.device("cuda", 0)
 
     # ---- 1. device and build ------------------------------------------

@@ -23,11 +23,13 @@ SOURCES = ("tile_ops.cuh", "render_chain.cu", "render_tree.cu",
            "adjoint_ops.cuh", "adjoint_packed.cu", "adjoint_fused.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
-#: -fmad=false: every kernel rounds as its plain version does, with no fused
-#: multiply-add, so the forwards pick the plain version's hit topology and
-#: the adjoints replay it (csrc/adjoint_ops.cuh, csrc/tile_ops.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags of each source: -fmad=false everywhere, so every kernel rounds as
+#: its plain version does, with no fused multiply-add; the forwards pick the
+#: plain version's hit topology and the adjoints replay it
+#: (csrc/adjoint_ops.cuh, csrc/tile_ops.cuh; fma_ab.py measures the cost)
+SOURCE_FLAGS = {s: ("-fmad=false",) for s in SOURCES if s.endswith(".cu")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _RENDER_ARGS = ([_P] + [_I] * 4        # tables; ns nt m nl
@@ -78,7 +80,8 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -106,7 +109,7 @@ def _build(path: str) -> None:
     cus = [s for s in SOURCES if s.endswith(".cu")]
     objs = [f"{tmp}.{s}.o" for s in cus]
     t0 = time.perf_counter()
-    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o,
+    log = _run_all([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS[s], "-c", "-o", o,
                      os.path.join(CSRC_DIR, s)] for s, o in zip(cus, objs)])
     log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
     for o in objs:
