@@ -264,55 +264,26 @@ def hold_fields(kname, label, loss, grads, ref_loss, ref):
 
 def sampled_plain(AF, K, dev, preset, params, jitter):
     """The plain version of a supersampled or adaptive fit on the same
-    inputs as ``fit_value_and_grad`` (the [S, P, 3] ``jitter``): each
-    sample's image from the chain or tree kernel, the mean or the adaptive
-    emulation, then per sample ``recompute_adjoint_ref`` under the
-    cotangent g/S or g*accept_k/divisor.  Returns (loss, FitParams
-    gradients, the rendered samples' accept planes)."""
-    import torch
-    from ray_tracer_fragment_shader_tpu_torch.ops.rays import (
-        Camera, primary_rays, screen_points)
+    inputs as ``fit_value_and_grad`` (the [S, P, 3] ``jitter``): its
+    forward (``AF.sampled_forward``, the chain or tree kernel per sample),
+    then per sample ``recompute_adjoint_ref`` in place of K7.  Returns
+    (loss, FitParams gradients, the rendered samples' accept planes)."""
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import Camera
     scene, cam, cfg = preset
-    h, w, S = cfg.height, cfg.width, cfg.samples
-    camera = Camera.from_config(cam, w, h, device=dev)
+    camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
     target = K.render_image_kernel(scene, camera, cfg, jitter=jitter,
                                    device=dev)
-    sc, tables, kw, akw = AF.kernel_inputs(params.into_scene(scene), cfg,
-                                           h * w, device=dev)
-    tree = not sc.chain_exact
-    render = K.render_tree if tree else K.render_chain
-    eye = camera.eye.tolist()
-    pts0 = screen_points(camera, w, h)
-    accum = torch.zeros((h, w, 3), device=dev)
-    divisor = torch.full((h, w), float(S), device=dev)
-    done = torch.zeros((h, w), dtype=torch.bool, device=dev)
-    rays, accepts = [], []
-    for k in range(S):
-        v = primary_rays(camera, pts0 + jitter[k])[1].contiguous()
-        c = render(tables, v, eye, **kw).reshape(h, w, 3)
-        rays.append(v)
-        if cfg.adaptive:
-            accum, divisor, done, a = K.adaptive_step(k, c, accum, divisor,
-                                                      done, cfg.small_number)
-            accepts.append(a)
-            if bool(done.all()):
-                break
-        else:
-            accum = accum + c
-    img = accum / (divisor[..., None] if cfg.adaptive else S)
-    diff = img - target
-    loss = torch.mean(diff * diff)
-    g = (2.0 / diff.numel()) * diff
+    fw = AF.sampled_forward(params.into_scene(scene), camera, cfg, target,
+                            jitter=jitter, device=dev)
     sums = None
-    for k, v in enumerate(rays):
-        gk = (g * (accepts[k].float() / divisor)[..., None] if cfg.adaptive
-              else g / S)
-        t = AF.recompute_adjoint_ref(tables, v, eye,
-                                     gk.reshape(-1, 3).contiguous(),
-                                     tree=tree, pack=akw["pack"], **kw)
+    for v, g in zip(fw["rays"], fw["cots"]):
+        t = AF.recompute_adjoint_ref(fw["tables"], v, fw["eye"], g,
+                                     tree=fw["tree"], pack=fw["pack"],
+                                     **fw["kw"])
         sums = t if sums is None else tuple(a + b for a, b in zip(sums, t))
-    grads = AF.grads_to_fitparams(params, scene, AF._grads_c(sc, *sums))
-    return loss, grads, accepts
+    grads = AF.grads_to_fitparams(params, scene,
+                                  AF._grads_c(fw["scene_c"], *sums))
+    return fw["loss"], grads, fw["accepts"]
 
 
 def hold_adjoint(AF, label, x, got):
@@ -717,7 +688,8 @@ def main():
                   f"(default_fit_optimizer), loss {float(loss):.6g} -> "
                   f"{' -> '.join(f'{v:.6g}' for v in steps)}")
             check(all(map(math.isfinite, steps)), f"{label}: loss not finite")
-        ref_loss, ref, accepts = sampled_plain(AF, K, dev, preset, start, jit)
+        ref_loss, ref, accepts = sampled_plain(AF, K, dev, preset, start,
+                                              jit)
         if cfg.adaptive:
             shares = [round(a.float().mean().item(), 4) for a in accepts]
             print(f"path {label}: {rendered} of {cfg.samples} samples "
@@ -872,9 +844,10 @@ def main():
                                     lambda: k3k4(x), 20, 20)
             hold_grads("fused_adjoint", label, AF.fused_adjoint(*args, **kw6),
                        k3k4(x), against="K3+K4")
-            print(f"time K6 against K3+K4 {label}: K6 {t6:.4f} ms ({r[0]:.4f}, "
-                  f"{r[1]:.4f}); K3+K4 {t34:.4f} ms ({r[2]:.4f}, {r[3]:.4f}); "
-                  f"K6/(K3+K4) {t6 / t34:.3f} [{card}]")
+            print(f"time K6 against K3+K4 {label}: K6 {t6:.4f} ms "
+                  f"({r[0]:.4f}, {r[1]:.4f}); K3+K4 {t34:.4f} ms "
+                  f"({r[2]:.4f}, {r[3]:.4f}); K6/(K3+K4) {t6 / t34:.3f} "
+                  f"[{card}]")
         if label.startswith("config 3"):
             times["fused_adjoint"] = (tk, tp)
             bounds["fused_adjoint"] = b6

@@ -382,6 +382,7 @@ def _grads_c(scene_c: FlatScene, dsph, dmat, dlight
 
 
 def _prep_for(camera, config, target, prep, device):
+    """``prep``, checked against ``target``, or a new one."""
     if prep is None:
         return prepare_fit_inputs(camera, config, target, device=device)
     _check_prep(prep, target)
@@ -488,18 +489,20 @@ def grads_to_fitparams(params, scene_full: FlatScene,
                 mat_ambient=grads_c["mat_ambient"])
 
 
-def _sampled_value_and_grad(params, scene_full: FlatScene, camera: Camera,
-                            config: RenderConfig, target, *, jitter,
-                            generator, device):
-    """The supersampled and adaptive branches of ``fit_value_and_grad``
-    (adjoint_fused.py:1689-1788).  Forward: S single-sample renders of the
-    jittered screen points on the chain or tree kernel, averaged, or run
-    through the adaptive emulation, which records each sample's accept
-    plane and the divisor (discrete outcomes, pinned like hit ids).
-    Backward: one K7 per sample, with cotangent ``g/S``, or ``g *
-    accept_k / divisor`` when adaptive; the tables summed in sample order.
-    Samples after every pixel has converged add exactly zero and are
-    neither rendered nor differentiated."""
+def sampled_forward(scene_full: FlatScene, camera: Camera,
+                    config: RenderConfig, target, *, jitter=None,
+                    generator=None, device=None) -> Dict[str, Any]:
+    """The forward of a supersampled or adaptive fit
+    (adjoint_fused.py:1689-1765): S single-sample renders of the jittered
+    screen points on the chain or tree kernel, averaged, or run through the
+    adaptive emulation, which records each sample's accept plane and the
+    divisor (discrete outcomes, pinned like hit ids); then the L2 loss and
+    each rendered sample's cotangent, ``g/S`` or ``g * accept_k /
+    divisor``.  Samples after every pixel has converged add exactly zero
+    and are not rendered.  Returns dict(loss, rays, cots (each rendered
+    sample's directions and cotangent, [P,3]), accepts (adaptive only),
+    scene_c, tables, kw, pack, eye, tree): what the per-sample backward
+    (``recompute_adjoint``) takes."""
     device = resolve_device(device)
     camera = camera.to(device)
     h, w, S = config.height, config.width, config.samples
@@ -536,21 +539,33 @@ def _sampled_value_and_grad(params, scene_full: FlatScene, camera: Camera,
             break
     img = accum / (divisor[..., None] if config.adaptive else S)
     diff = img - target
-    loss = torch.mean(diff * diff)
     if config.adaptive:
         g = (2.0 / diff.numel()) * diff
         cots = [g * (a.float() / divisor)[..., None] for a in accepts]
     else:
         cots = [(2.0 / (diff.numel() * S)) * diff] * len(rays)
+    return dict(loss=torch.mean(diff * diff), rays=rays,
+                cots=[c.reshape(P, 3).contiguous() for c in cots],
+                accepts=accepts, scene_c=scene_c, tables=tables, kw=kw,
+                pack=akw["pack"], eye=eye, tree=tree)
 
+
+def _sampled_value_and_grad(params, scene_full: FlatScene, camera: Camera,
+                            config: RenderConfig, target, *, jitter,
+                            generator, device):
+    """The supersampled and adaptive branches of ``fit_value_and_grad``:
+    ``sampled_forward``, then one K7 per rendered sample, the tables summed
+    in sample order (adjoint_fused.py:1739-1788)."""
+    fw = sampled_forward(scene_full, camera, config, target, jitter=jitter,
+                         generator=generator, device=device)
     sums = None
-    for v, gk in zip(rays, cots):
-        tabs = recompute_adjoint(tables, v, eye, gk.reshape(P, 3).contiguous(),
-                                 tree=tree, pack=akw["pack"], **kw)
+    for v, g in zip(fw["rays"], fw["cots"]):
+        tabs = recompute_adjoint(fw["tables"], v, fw["eye"], g,
+                                 tree=fw["tree"], pack=fw["pack"], **fw["kw"])
         sums = tabs if sums is None else tuple(a + b
                                                for a, b in zip(sums, tabs))
-    return loss, grads_to_fitparams(params, scene_full,
-                                    _grads_c(scene_c, *sums))
+    return fw["loss"], grads_to_fitparams(params, scene_full,
+                                          _grads_c(fw["scene_c"], *sums))
 
 
 def fit_value_and_grad(params, scene: FlatScene, camera: Camera,

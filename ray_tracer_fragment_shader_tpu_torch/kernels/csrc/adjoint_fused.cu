@@ -58,7 +58,7 @@ fused_adjoint_kernel(const float* __restrict__ tables, AdjParams ap,
   float loss = 0.0f;
   float g[3] = {0.0f, 0.0f, 0.0f};
   float vx = 0.0f, vy = 0.0f, vz = 0.0f;
-  int hits = 0;
+  int hits = 0;  // chain levels hit (the tree adjoint reads words[] itself)
   bool live = false;
   if (p < num_pixels) {
     if constexpr (EXTERNAL_G) {
@@ -81,7 +81,6 @@ fused_adjoint_kernel(const float* __restrict__ tables, AdjParams ap,
         const int nodes = (2 << prm.depth) - 1;
         for (int k = 0; k < nodes; ++k) words[k] = dead;
         tree_forward<WANT_TRANS>(s, prm, vx, vy, vz, col, sink);
-        hits = 1;  // the tree adjoint reads words[0] itself
       } else {
         hits = chain_forward<WANT_TRANS>(s, prm, vx, vy, vz, col, sink);
       }
@@ -102,7 +101,7 @@ fused_adjoint_kernel(const float* __restrict__ tables, AdjParams ap,
   // ---- adjoint ----
   GradRecs<kWords> gr;
   gr.init(prm.nl);
-  if (live && hits > 0) {
+  if (live) {
     if constexpr (TREE) {
       tree_adjoint<WANT_TRANS>(s, prm, words, ap.bw_bi, ap.bw_mid, vx, vy, vz,
                                g, gr);

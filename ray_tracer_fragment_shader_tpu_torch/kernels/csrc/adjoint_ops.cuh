@@ -340,7 +340,8 @@ struct GradRecs {
 // (o, v) (the JAX kernel's ov_at route) and applies the node adjoint.
 // Level lv's cotangents go to record lv.
 template <bool WANT_TRANS>
-__device__ __forceinline__ void chain_adjoint(const Scene& s, const Params& prm,
+__device__ __forceinline__ void chain_adjoint(const Scene& s,
+                                              const Params& prm,
                                               const NodeConst* cst, int L,
                                               float vx, float vy, float vz,
                                               const float g[3],

@@ -41,7 +41,8 @@ render_chain_kernel(const float* __restrict__ tables, Params prm,
           // (bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid: exact f32 integers
           // (render_pallas.py:690-695)
           prm.pk[static_cast<size_t>(lv) * num_pixels + p] =
-              static_cast<float>(bi + 1) + static_cast<float>(mid) * prm.bw_bi +
+              static_cast<float>(bi + 1) +
+              static_cast<float>(mid) * prm.bw_bi +
               static_cast<float>(lit_bits) * (prm.bw_bi * prm.bw_mid);
         }
       });

@@ -355,7 +355,8 @@ __device__ __forceinline__ bool trace_node(const Scene& s, float ox, float oy,
   return true;
 }
 
-// ---- the chain and the tree (render_pallas.py::_chain_forward, _tree_forward)
+// ---- the chain and the tree (render_pallas.py::_chain_forward,
+// _tree_forward) ----------------------------------------------------------
 
 // Deepest tree the per-thread stacks hold (kernels/render.py::TREE_MAX_DEPTH).
 constexpr int kTreeMaxDepth = 10;

@@ -196,8 +196,8 @@ def test_jax_tree_replay_of_port_residuals_reproduces_the_image(
         tree_forward):
     depth, img, res = tree_forward
     js, jcam, jcfg = jax_fractional(depth)
-    rep = np.asarray(j_replay_tree(js, jcam, jcfg,
-                                   {k: jnp.asarray(a) for k, a in res.items()}))
+    jres = {k: jnp.asarray(a) for k, a in res.items()}
+    rep = np.asarray(j_replay_tree(js, jcam, jcfg, jres))
     np.testing.assert_allclose(rep, img.numpy(), atol=1e-4)
     ts, tcam, tcfg = port_fractional(depth)
     port = replay_render_tree(ts, tcam, tcfg,
