@@ -76,6 +76,31 @@ Phases (each raises on failure; the script then exits non-zero):
    kernel's bound is the larger of its FP32 operations over 67 TFLOP/s and
    its bytes over 3.35 TB/s, counted on this run's inputs
    (``utils/opcount.py``).
+9. the residual forwards against their plain versions at 128^2: the chain
+   (K2's residual form) on phase 4's scenes, the tree (K5's) on
+   fractional_glass d3, planes equal exactly and images within phase 2's
+   budget; K8 (``fit_grads``) on phase 4's scenes under the cotangent
+   (2/denom)(img - target) of the moved scene, twice bit-identical, each
+   table within 1e-3 of max|plain|, and against K4 on the same inputs
+   (expected equal bit for bit; printed, and held to 1e-3);
+10. this slice's paths at full width, each with the launch counters zeroed
+   just before it and read just after: the split fit
+   (``fit_value_and_grad(mode="split")``, config 3 1024^2 d3, 5 Adam steps
+   of ``default_fit_optimizer``; its first step held against the two-phase
+   path), ``render_image_diff`` fwd+bwd through ``l2_loss_kernel`` at
+   config 3 (gradients to FitParams, held against K8's, and to all six
+   camera tensors, finite), one split step at config 5 2048^2 d3 held
+   against two-phase, and ``render_image_diff`` on fractional_glass 1024^2
+   d3 through the residual tree, held against K6's tree tables;
+11. the BASELINE gradient bar on the card (``grad_bar.main``: K8 on
+   fit_target 128^2, K7's tree on a two-light fractional scene 64^2, eye
+   gradients of ``render_image_diff`` 64^2), max-abs-err <= 1e-4 against
+   f64 finite differences, written to chiprun_out/grad_bar_h100.json;
+12. times: the residual chain at config 3 and the residual tree at
+   fractional_glass 1024^2 d3 against their plain versions; K8 at config 3
+   and config 5 2048^2 with K4 alternated (K4, K8, K8, K4), its plain
+   version at config 3; the split step and the ``render_image_diff`` step
+   on the host clock.
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.
@@ -125,6 +150,18 @@ KERNEL_SOURCES = {
                           "adjoint_fused.cu",
                           "ray_tracer_fragment_shader_tpu/kernels/"
                           "adjoint_fused.py:1123"),
+    "render_chain_residuals": ("ray_tracer_fragment_shader_tpu_torch/kernels/"
+                               "csrc/render_chain.cu",
+                               "ray_tracer_fragment_shader_tpu/kernels/"
+                               "render_pallas.py:737"),
+    "render_tree_residuals": ("ray_tracer_fragment_shader_tpu_torch/kernels/"
+                              "csrc/render_tree.cu",
+                              "ray_tracer_fragment_shader_tpu/kernels/"
+                              "render_pallas.py:901"),
+    "fit_grads": ("ray_tracer_fragment_shader_tpu_torch/kernels/csrc/"
+                  "fit_grads.cu",
+                  "ray_tracer_fragment_shader_tpu/kernels/"
+                  "adjoint_fused.py:814"),
 }
 FIELDS = ("sph_center", "sph_radius", "light_pos", "mat_diffuse",
           "mat_specular", "mat_ambient")
@@ -247,18 +284,18 @@ def as_fields(AF, x, tables):
                                  AF._grads_c(x["scene_c"], *tables))
 
 
-def hold_fields(kname, label, loss, grads, ref_loss, ref):
-    """A path's (loss, FitParams gradients) against the plain version's, to
-    hold_grads' tolerances, field by field."""
+def hold_fields(kname, label, loss, grads, ref_loss, ref, against="plain"):
+    """A path's (loss, FitParams gradients) against the plain version's (or
+    what ``against`` names), to hold_grads' tolerances, field by field."""
     loss_rel = abs(float(loss) - float(ref_loss)) / max(abs(float(ref_loss)),
                                                         1e-30)
     errs = {f: rel_err(grads[f], ref[f]) for f in FIELDS}
-    print(f"{kname} {label}: loss {float(loss):.7g} vs plain "
-          f"{float(ref_loss):.7g} (rel {loss_rel:.2e}); max|diff|/max|plain| "
-          + " ".join(f"{f} {e:.2e}" for f, e in errs.items())
+    print(f"{kname} {label}: loss {float(loss):.7g} vs {against} "
+          f"{float(ref_loss):.7g} (rel {loss_rel:.2e}); max|diff|/max|"
+          f"{against}| " + " ".join(f"{f} {e:.2e}" for f, e in errs.items())
           + f" (tolerance {GRAD_REL_TOL})")
     check(loss_rel <= LOSS_REL_TOL and max(errs.values()) <= GRAD_REL_TOL,
-          f"{kname} disagrees with its plain version on {label}")
+          f"{kname} disagrees with {against} on {label}")
     return max((grads[f] - ref[f]).abs().max().item() for f in FIELDS)
 
 
@@ -562,9 +599,11 @@ def main():
     # ---- 7. this slice's paths at full width ----------------------------
     slice_launches = {"fused_adjoint": 0, "recompute_adjoint": 0}
 
-    def drive(label, fn, want, absent=()):
+    def drive(label, fn, want, absent=(), into=None):
         """Runs one path with the launch counters zeroed just before; each
-        kernel of ``want`` must have launched, none of ``absent``."""
+        kernel of ``want`` must have launched, none of ``absent``.  The
+        counts of the kernels ``into`` names (default: this phase's) are
+        added to it."""
         K.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
@@ -575,8 +614,9 @@ def main():
             check(counts[k] > 0, f"{label}: the path never launched {k}")
         for k in absent:
             check(counts[k] == 0, f"{label}: the path launched {k}")
-        for k in slice_launches:
-            slice_launches[k] += counts[k]
+        acc = slice_launches if into is None else into
+        for k in acc:
+            acc[k] += counts[k]
         return out, counts
 
     def seeded(cfg):
@@ -901,12 +941,273 @@ def main():
         t_step = step_ms(lambda: AF.fit_value_and_grad(
             params, scene, camera, cfg, target, generator=seeded(cfg),
             device=dev), 3)
-        rays = cfg.width * cfg.height * rendered
+        n_rays = cfg.width * cfg.height * rendered
         print(f"time sampled step    {label}: fit_value_and_grad "
               f"{t_step:.4f} ms on the host clock, {rendered} samples "
-              f"rendered = {rays / t_step / 1e3:.1f} M rays/s [{card}]")
+              f"rendered = {n_rays / t_step / 1e3:.1f} M rays/s [{card}]")
         del params
     torch.cuda.empty_cache()
+
+    # ---- 9. the residual forwards and K8 against their plain versions --
+    from ray_tracer_fragment_shader_tpu_torch.kernels.adjoint import (
+        l2_loss_kernel)
+    errs.update(render_chain_residuals=[], render_tree_residuals=[],
+                fit_grads=[])
+    fracs.update(render_chain_residuals=[], render_tree_residuals=[])
+
+    def hold_residuals(phase, label, tables, v, eye, kw, tree, side):
+        """The residual forward against its plain version: planes equal,
+        the image within phase 2's budget.  Returns (img, planes)."""
+        kname = "render_tree_residuals" if tree else "render_chain_residuals"
+        img, res = K.render_residuals(tables, v, eye, tree=tree, **kw)
+        torch.cuda.synchronize()
+        img_ref, res_ref = K.render_residuals_ref(tables, v, eye, tree=tree,
+                                                  **kw)
+        hold(phase, kname, label, img.reshape(side, side, 3), img_ref, 0.01)
+        diff = {k: (res[k] != res_ref[k]).float().mean().item() for k in res}
+        plain = (K.render_tree if tree else K.render_chain)(tables, v, eye,
+                                                            **kw)
+        print(f"{phase} {kname} {label}: planes differing from the plain "
+              f"version's {diff} (must be 0); image bit-identical to "
+              f"{'render_tree' if tree else 'render_chain'}: "
+              f"{torch.equal(img, plain)}")
+        check(all(d == 0.0 for d in diff.values()),
+              f"{kname} planes differ from the plain version's on {label}")
+        return img, res
+
+    def split_inputs(x):
+        """K8's inputs on ``x``: the residual forward of the moved scene and
+        the cotangent (2/denom)(img - target), in K4's order."""
+        img, res = K.render_residuals(x["tables"], x["v"], x["eye"],
+                                      tree=False, **x["kw"])
+        g = (x["akw"]["g_scale"] * (img - x["target"])).contiguous()
+        fkw = {k: x["akw"][k] for k in ("nl", "depth", "atten",
+                                         "want_trans")}
+        return (x["tables"], x["v"], x["eye"], g, res), fkw
+
+    def k4_of(x):
+        return AF.adjoint_packed(x["tables"], x["v"], x["eye"], x["img"],
+                                 x["target"], x["mask"], x["pk"],
+                                 **x["akw"])[1:]
+
+    def against_k4(label, got, k4):
+        """K8's tables against K4's on the same inputs: equal bit for bit
+        is expected (one chain_adjoint, one cotangent order)."""
+        same = all(torch.equal(a, b) for a, b in zip(got, k4))
+        worst = max((a - b).abs().max().item() for a, b in zip(got, k4))
+        print(f"check fit_grads {label}: tables equal K4's bit for bit: "
+              f"{same} (max|K8 - K4| {worst:.3g})")
+        hold_grads("fit_grads", label, got, k4, against="K4")
+        return same
+
+    for label, make in fit_cases + [frac_case]:
+        scene, cam, cfg = make(n)
+        hold_residuals("check", label, *rays(scene, cam, cfg),
+                       not scene.chain_exact, n)
+    for label, make in fit_cases:
+        x = fit_inputs(K, AF, dev, make(n))
+        args8, fkw = split_inputs(x)
+        a = twice(lambda: AF.fit_grads(*args8, **fkw), "fit_grads", label)
+        errs["fit_grads"].append(hold_grads(
+            "fit_grads", label, a, AF.fit_grads_ref(*args8, **fkw)))
+        against_k4(label, a, k4_of(x))
+        del x, args8, a
+    torch.cuda.empty_cache()
+
+    # ---- 10. this slice's paths at full width ---------------------------
+    split_launches = {"render_chain_residuals": 0,
+                      "render_tree_residuals": 0, "fit_grads": 0}
+    x = fit_inputs(K, AF, dev, fr3)
+    params = FitParams.from_scene(fr3[0]).to(dev)
+    params.load_state_dict(x["params"].state_dict())
+    opt = default_fit_optimizer(params)
+    first = {}
+
+    def split_steps():
+        out = []
+        for _ in range(5):
+            opt.zero_grad()
+            lv, gv = AF.fit_value_and_grad(params, x["scene"], x["camera"],
+                                           x["cfg"], x["target"],
+                                           mode="split", device=dev)
+            first.setdefault("loss", lv)
+            first.setdefault("grads", gv)
+            for f in FIELDS:
+                getattr(params, f).grad = gv[f]
+            opt.step()
+            out.append(float(lv))
+        return out
+    steps, _ = drive("split fit, config 3 1024^2 d3, 5 Adam steps",
+                     split_steps, want=["render_chain_residuals", "fit_grads"],
+                     absent=["render_packed", "adjoint_packed",
+                             "fused_adjoint"], into=split_launches)
+    print(f"path split fit: 5 Adam steps (default_fit_optimizer), loss "
+          f"{' -> '.join(f'{v:.6g}' for v in steps)}")
+    check(all(map(math.isfinite, steps)), "split fit: loss not finite")
+    start = x["params"].to(dev)
+    l4, g4 = AF.fit_value_and_grad(start, x["scene"], x["camera"], x["cfg"],
+                                   x["target"], device=dev)
+    hold_fields("fit_grads", "config 3 1024^2 d3 (path, first step)",
+                first["loss"], first["grads"], l4, g4, against="two-phase")
+    print("path split fit: first step's gradients equal the two-phase "
+          "path's bit for bit: "
+          f"{all(torch.equal(first['grads'][f], g4[f]) for f in FIELDS)}")
+
+    # render_image_diff at config 3: gradients to FitParams and the camera
+    pd = FitParams.from_scene(fr3[0]).to(dev)
+    pd.load_state_dict(x["params"].state_dict())
+    cam_g = dataclasses.replace(x["camera"], **{
+        f.name: getattr(x["camera"], f.name).clone().requires_grad_()
+        for f in dataclasses.fields(x["camera"])})
+
+    def diff_step():
+        loss = l2_loss_kernel(pd, x["scene"], cam_g, x["cfg"], x["target"],
+                              device=dev)
+        loss.backward()
+        return loss.detach()
+    loss_d, _ = drive("render_image_diff, config 3 1024^2 d3", diff_step,
+                      want=["render_chain_residuals"],
+                      absent=["fit_grads", "render_packed",
+                              "adjoint_packed"], into=split_launches)
+    l8, g8 = AF.fit_value_and_grad(start, x["scene"], x["camera"], x["cfg"],
+                                   x["target"], mode="split", device=dev)
+    hold_fields("render_chain_residuals", "render_image_diff config 3 "
+                "1024^2 d3 (path)", loss_d,
+                {f: getattr(pd, f).grad for f in FIELDS}, l8, g8,
+                against="K8")
+    cam_grads = {f.name: getattr(cam_g, f.name).grad
+                 for f in dataclasses.fields(cam_g)}
+    print("path render_image_diff: camera gradients "
+          + " ".join(f"{k} {v.tolist()}" for k, v in cam_grads.items()))
+    check(all(v is not None and bool(torch.isfinite(v).all())
+              for v in cam_grads.values()),
+          "render_image_diff: a camera tensor has no finite gradient")
+    del x, params, opt, first, start, pd, cam_g
+    torch.cuda.empty_cache()
+
+    # config 5 2048^2: one split step held against two-phase
+    x = fit_inputs(K, AF, dev, c5)
+    params = x["params"].to(dev)
+    (l5, g5), _ = drive(
+        "split step, config 5 2048^2 d3",
+        lambda: AF.fit_value_and_grad(params, x["scene"], x["camera"],
+                                      x["cfg"], x["target"], mode="split",
+                                      device=dev),
+        want=["render_chain_residuals", "fit_grads"], into=split_launches)
+    l5t, g5t = AF.fit_value_and_grad(params, x["scene"], x["camera"],
+                                     x["cfg"], x["target"], device=dev)
+    hold_fields("fit_grads", "config 5 2048^2 d3 (path)", l5, g5, l5t, g5t,
+                against="two-phase")
+    print("path split step config 5: gradients equal the two-phase path's "
+          f"bit for bit: {all(torch.equal(g5[f], g5t[f]) for f in FIELDS)}")
+    del x, params, g5, g5t
+    torch.cuda.empty_cache()
+
+    # render_image_diff on the tree (residual K5) against K6's tree tables
+    x = fit_inputs(K, AF, dev, fg3)
+    pt = FitParams.from_scene(fg3[0]).to(dev)
+    pt.load_state_dict(x["params"].state_dict())
+
+    def tree_diff_step():
+        loss = l2_loss_kernel(pt, fg3[0], x["camera"], fg3[2], x["target"],
+                              device=dev)
+        loss.backward()
+        return loss.detach()
+    loss_t, _ = drive("render_image_diff, fractional_glass 1024^2 d3 (tree)",
+                      tree_diff_step, want=["render_tree_residuals"],
+                      absent=["fused_adjoint"], into=split_launches)
+    args, kw6 = fused_args(x)
+    k6 = AF.fused_adjoint(*args, **kw6)
+    hold_fields("render_tree_residuals", "render_image_diff "
+                "fractional_glass 1024^2 d3 (path)", loss_t,
+                {f: getattr(pt, f).grad for f in FIELDS},
+                k6[0] / (x["v"].shape[0] * 3), as_fields(AF, x, k6[1:]),
+                against="K6")
+    del x, pt, args, k6
+    torch.cuda.empty_cache()
+    print(f"this slice's paths launched {split_launches}")
+    launches.update(split_launches)
+
+    # ---- 11. the BASELINE gradient bar on the card ----------------------
+    from ray_tracer_fragment_shader_tpu_torch import grad_bar
+    check(grad_bar.main(["--out", os.path.join(REPO, grad_bar.OUT)]) == 0,
+          f"grad bar: a check's max-abs-err > {grad_bar.BAR} [{card}]")
+
+    # ---- 12. times of this slice's kernels and paths ---------------------
+    for kname, label, preset in (
+            ("render_chain_residuals", "config 3 1024^2 d3", fr3),
+            ("render_tree_residuals", "fractional_glass 1024^2 d3", fg3)):
+        tables, v, eye, kw = rays(*preset)
+        tree = kname == "render_tree_residuals"
+        hold_residuals("timed", label, tables, v, eye, kw, tree, 1024)
+        tk, tp, r = four_times(
+            lambda: K.render_residuals(tables, v, eye, tree=tree, **kw),
+            lambda: K.render_residuals_ref(tables, v, eye, tree=tree, **kw),
+            20, 2)
+        work = opcount.forward_work(tables, v, eye, tree=tree, residuals=True,
+                                    **kw)
+        times[kname], bounds[kname] = (tk, tp), opcount.bound_ms(
+            work["ops"], work["bytes"])
+        print(f"time {kname} {label}: kernel {tk:.4f} ms ({r[0]:.4f}, "
+              f"{r[1]:.4f}); plain {tp:.2f} ms ({r[2]:.2f}, {r[3]:.2f}); "
+              f"bound {bounds[kname][0]:.5f} ms ({bounds[kname][1]}: "
+              f"{work['ops']:.4g} FP32 ops, {work['bytes']:.4g} B) [{card}]")
+        del tables, v
+    for label, preset in (("config 3 1024^2 d3", fr3),
+                          ("config 5 2048^2 d3", c5)):
+        x = fit_inputs(K, AF, dev, preset)
+        args8, fkw = split_inputs(x)
+        errs["fit_grads"].append(hold_grads(
+            "fit_grads", label + " (timed)", AF.fit_grads(*args8, **fkw),
+            k4_of(x), against="K4"))
+        # K4, K8, K8, K4
+        t8, t4, r = four_times(lambda: AF.fit_grads(*args8, **fkw),
+                               lambda: k4_of(x), 20, 20)
+        w8 = opcount.fit_grads_work(x["tables"], args8[3], args8[4],
+                                    nl=fkw["nl"], depth=fkw["depth"],
+                                    want_trans=fkw["want_trans"])
+        b8 = opcount.bound_ms(w8["ops"], w8["bytes"])
+        print(f"time fit_grads {label}: K8 {t8:.4f} ms ({r[0]:.4f}, "
+              f"{r[1]:.4f}); K4 alternated {t4:.4f} ms ({r[2]:.4f}, "
+              f"{r[3]:.4f}); K8/K4 {t8 / t4:.3f}; bound {b8[0]:.5f} ms "
+              f"({b8[1]}: {w8['ops']:.4g} FP32 ops, {w8['bytes']:.4g} B; "
+              f"{w8['live_pixels']} pixels with a cotangent, "
+              f"{w8['hit_levels']} hit levels) [{card}]")
+        P = x["v"].shape[0]
+        params = x["params"].to(dev)
+        if label.startswith("config 3"):
+            errs["fit_grads"].append(hold_grads(
+                "fit_grads", label + " (timed, plain)",
+                AF.fit_grads(*args8, **fkw),
+                AF.fit_grads_ref(*args8, **fkw)))
+            tp = (time_ms(lambda: AF.fit_grads_ref(*args8, **fkw), 1)
+                  + time_ms(lambda: AF.fit_grads_ref(*args8, **fkw), 1)) / 2
+            print(f"time fit_grads {label}: plain {tp:.2f} ms [{card}]")
+            times["fit_grads"], bounds["fit_grads"] = (t8, tp), b8
+            pd = FitParams.from_scene(preset[0]).to(dev)
+            pd.load_state_dict(x["params"].state_dict())
+
+            def diff_step():
+                pd.zero_grad()
+                l2_loss_kernel(pd, x["scene"], x["camera"], x["cfg"],
+                               x["target"], device=dev).backward()
+            t_diff = step_ms(diff_step, 5)
+            print(f"time render_image_diff step {label}: l2_loss_kernel "
+                  f"fwd+bwd {t_diff:.4f} ms on the host clock = "
+                  f"{P / t_diff / 1e3:.1f} M rays/s [{card}]")
+            del pd
+        t_split = step_ms(lambda: AF.fit_value_and_grad(
+            params, x["scene"], x["camera"], x["cfg"], x["target"],
+            mode="split", device=dev), 10)
+        t_two = step_ms(lambda: AF.fit_value_and_grad(
+            params, x["scene"], x["camera"], x["cfg"], x["target"],
+            device=dev), 10)
+        print(f"time split step {label}: fit_value_and_grad(mode=\"split\") "
+              f"{t_split:.4f} ms on the host clock = {P / t_split / 1e3:.1f} "
+              f"M rays/s; two-phase (no prep) {t_two:.4f} ms; K8 {t8:.4f} ms "
+              f"[{card}]")
+        del x, args8, params
+        torch.cuda.empty_cache()
 
     kernels = []
     for k in KERNEL_SOURCES:

@@ -1,6 +1,7 @@
-"""Fixed-topology replay of the bounce chain and tree, in plain PyTorch —
-the counterpart of the JAX package's ``kernels/adjoint.py`` (``_node_math``,
-``replay_render``, ``replay_render_tree``).
+"""Fixed-topology replay of the bounce chain and tree, in plain PyTorch,
+and the differentiable render built on it — the counterpart of the JAX
+package's ``kernels/adjoint.py`` (``_node_math``, ``replay_render``,
+``replay_render_tree``, ``render_image_diff``, ``l2_loss_pallas``).
 
 The forward kernel's per-level residuals — hit primitive id, resolved
 material id, per-light lit flag — pin the discrete topology (closest-hit
@@ -12,20 +13,28 @@ version of the hand-written adjoint kernels (csrc/adjoint_packed.cu,
 csrc/adjoint_fused.cu), with which it shares no code.
 
 Rows are gathered by id (``_take``), not by [P, N] one-hot products, so a
-2048² frame of a 66-primitive scene fits in memory.  ``render_image_diff``
-and ``l2_loss_pallas`` are not ported yet.
+2048² frame of a 66-primitive scene fits in memory.
+
+``render_image_diff`` is a ``torch.autograd.Function`` whose forward is the
+residual forward kernel (kernels/render.py::render_forward_with_residuals,
+the chain or the tree) and whose backward is autograd through the replay of
+its residuals, as the JAX package's backward is the XLA replay VJP (no
+Pallas kernel): gradients reach every float field of the scene and the
+camera.  ``l2_loss_kernel`` is the L2 loss on it (JAX ``l2_loss_pallas``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
 
-from ..config import RenderConfig
+from ..config import CameraConfig, RenderConfig
 from ..ops.rays import Camera, primary_rays, screen_points
 from ..scene.flat import FlatScene, tri_derived
 from ..utils.jmath import safe_div, safe_sqrt
-from .render import compact_scene
+from .render import (compact_scene, render_forward_with_residuals,
+                     resolve_device)
 
 
 def _take(table: torch.Tensor, idx: torch.Tensor,
@@ -238,3 +247,87 @@ def replay_render_tree(scene: FlatScene, camera: Camera,
         residuals["lit"].reshape(scene.num_lights, K, P),
         depth=depth, atten=config.attenuation_factor)
     return color.reshape(h, w, 3)
+
+
+_CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
+_SCENE_META = ("checker_mats", "chain_exact", "has_transmission")
+
+
+class _RenderDiff(torch.autograd.Function):
+    """The residual forward as an autograd node over the scene's and the
+    camera's tensors (``leaves``: the scene's in ``FlatScene.tensors()``
+    order, then the camera's six)."""
+
+    @staticmethod
+    def forward(ctx, scene, camera, config, device, *leaves):
+        img, res = render_forward_with_residuals(scene, camera, config,
+                                                 device=device)
+        ctx.config = config
+        ctx.meta = {k: getattr(scene, k) for k in _SCENE_META}
+        ctx.names = tuple(scene.tensors())
+        ctx.res_keys = tuple(res)
+        ctx.save_for_backward(*leaves, *res.values())
+        return img
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        n = len(ctx.names) + len(_CAMERA_FIELDS)
+        res = dict(zip(ctx.res_keys, saved[n:]))
+        wants = ctx.needs_input_grad[4:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(w)
+                      for t, w in zip(saved[:n], wants)]
+            scene = FlatScene(**dict(zip(ctx.names, leaves)), **ctx.meta)
+            camera = Camera(**dict(zip(_CAMERA_FIELDS,
+                                       leaves[len(ctx.names):])))
+            replay = replay_render if scene.chain_exact else replay_render_tree
+            img = replay(scene, camera, ctx.config, res)
+            diff = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(img, diff, grad_outputs=g,
+                                             allow_unused=True)
+                         if diff else ())
+        out = []
+        for t in leaves:
+            if not t.requires_grad:
+                out.append(None)
+                continue
+            d = next(grads)
+            out.append(torch.zeros_like(t) if d is None else d)
+        return (None, None, None, None, *out)
+
+
+def render_image_diff(scene: FlatScene, camera, config: RenderConfig, *,
+                      device=None) -> torch.Tensor:
+    """Differentiable render -> [H,W,3], on ``device`` (the GPU by default;
+    ``"cpu"`` runs the plain versions): the forward is the residual kernel
+    (the chain or, for fractional transparency, the tree), the backward
+    autograd through the fixed-topology replay of its residuals
+    (adjoint.py::render_image_diff, a ``jax.custom_vjp`` there).  Every
+    float tensor of ``scene`` and of ``camera`` that requires grad receives
+    one (zero where the image does not depend on it: the prune groups, the
+    board's placement); integer and bool fields receive none.  The inputs
+    are moved with ``.to(device)``, so leaves on the CPU receive their
+    gradients while the render runs on the card.  The image is the
+    kernel's; the replay recomputes it only inside the backward."""
+    device = resolve_device(device)
+    if isinstance(camera, CameraConfig):
+        camera = Camera.from_config(camera, config.width, config.height,
+                                    device=device)
+    scene, camera = scene.to(device), camera.to(device)
+    return _RenderDiff.apply(
+        scene, camera, config, device, *scene.tensors().values(),
+        *(getattr(camera, f) for f in _CAMERA_FIELDS))
+
+
+def l2_loss_kernel(params, scene: FlatScene, camera, config: RenderConfig,
+                   target, *, device=None) -> torch.Tensor:
+    """``mean((render_image_diff(params.into_scene(scene)) - target)^2)``:
+    the L2 photometric loss on the differentiable render, gradients to the
+    ``FitParams`` leaves (and the camera's, where they require grad) by
+    ``.backward()`` (adjoint.py::l2_loss_pallas)."""
+    img = render_image_diff(params.into_scene(scene), camera, config,
+                            device=device)
+    target = torch.as_tensor(target, dtype=img.dtype,
+                             device=img.device).reshape(img.shape)
+    return torch.mean((img - target) ** 2)

@@ -1,7 +1,7 @@
 """Loss and gradients of the L2 fit through hand-written CUDA kernels — the
 counterpart of the JAX package's ``kernels/adjoint_fused.py``.
 
-Three kernels, each behind a wrapper that counts its launches
+Four kernels, each behind a wrapper that counts its launches
 (``render.LAUNCHES``):
 
 * ``adjoint_packed`` (K4, csrc/adjoint_packed.cu): phase 2 of the two-phase
@@ -15,13 +15,17 @@ Three kernels, each behind a wrapper that counts its launches
 * ``recompute_adjoint`` (K7, the same source): the forward re-traced and
   the adjoint run under a cotangent given from outside; the per-sample
   backward of supersampled and adaptive fits.
+* ``fit_grads`` (K8, csrc/fit_grads.cu): the chain adjoint from the
+  unpacked residual planes of ``render.render_residuals`` under a
+  cotangent given from outside; ``mode="split"``, and the only fit path of
+  chain scenes whose packed residual word would overflow 2^24.
 
 One thread runs one pixel.  Each block writes one row of per-entity
 partial sums, and a second kernel adds the rows in a fixed order, so two
 launches give bit-identical tables.
 
 The plain versions (``adjoint_packed_ref``, ``fused_adjoint_ref``,
-``recompute_adjoint_ref``) differentiate the replays of
+``recompute_adjoint_ref``, ``fit_grads_ref``) differentiate the replays of
 ``kernels/adjoint.py`` with ``torch.autograd``; they share no code with the
 kernels' adjoint.  Gradients are taken through fixed hit topology (hit/miss,
 checker parity and shadow edges carry none), w.r.t. the ``FitParams``
@@ -41,9 +45,10 @@ from ..scene.flat import FlatScene
 from .adjoint import replay_chain, replay_tree
 from .render import (LAUNCHES, SMEM_LIMIT_BYTES, _check, _flat_tables,
                      adaptive_step, compact_scene, jitter_source, pack_scene,
-                     pack_widths, render_chain, render_kwargs,
-                     render_packed, render_packed_ref, render_tree,
-                     render_tree_ref, resolve_device, unpack_residuals)
+                     pack_widths, render_chain, render_forward_with_residuals,
+                     render_kwargs, render_packed, render_packed_ref,
+                     render_tree, render_tree_ref, resolve_device,
+                     unpack_residuals)
 
 # Diff-table layouts (rows = entity, cols = packed fields)
 SPHD_COLS = 8    # cx cy cz r - - - -
@@ -176,6 +181,18 @@ def recompute_adjoint_ref(tables, v, eye, g, *, tree: bool,
                                    **kw)
     return replay_grads(tables, v, eye, res, g, tree=tree, nl=kw["nl"],
                         depth=kw["depth"], atten=kw["atten"])
+
+
+def fit_grads_ref(tables, v, eye, g, res: Dict[str, torch.Tensor], *,
+                  nl: int, depth: int, atten: float, want_trans: bool):
+    """Plain PyTorch version of K8: the gradient tables (dsph, dmat,
+    dlight) of ``sum(g * replay)`` by autograd through the chain replay of
+    the residual planes ``res`` (bi, mid [depth+1, P], lit [nl, depth+1,
+    P]) along the primary directions ``v`` [P,3] under the cotangent ``g``
+    [P,3].  ``want_trans`` is K8's launch flag; the replay reads the
+    material rows for it."""
+    return replay_grads(tables, v, eye, res, g, tree=False, nl=nl,
+                        depth=depth, atten=atten)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -319,6 +336,32 @@ def recompute_adjoint(tables, v, eye, g, *, tree: bool,
         float(pack[1]))[1:]
 
 
+def fit_grads(tables, v, eye, g, res: Dict[str, torch.Tensor], *, nl: int,
+              depth: int, atten: float, want_trans: bool):
+    """K8, the split-mode backward: the gradient tables (dsph [ns,8], dmat
+    [m,16], dlight [max(nl,1),8]) of ``sum(g * img)`` by the chain adjoint,
+    from the primary-ray directions ``v`` [P,3] from ``eye``, the cotangent
+    ``g`` [P,3] and the residual planes ``res`` of ``render_residuals``
+    (bi, mid [depth+1, P], lit [nl, depth+1, P]).  Pixels whose ``g`` is 0
+    add nothing and read no residual.  Depth at most
+    ``ADJOINT_MAX_DEPTH``, at most ``ADJOINT_MAX_LIGHTS`` lights, on every
+    device.  CUDA tensors launch csrc/fit_grads.cu; CPU tensors run
+    ``fit_grads_ref``."""
+    _check(tables, v, depth, nl)
+    P = v.shape[0]
+    _check_planes(v, ("g", g, (P, 3)), ("bi", res["bi"], (depth + 1, P)),
+                  ("mid", res["mid"], (depth + 1, P)),
+                  ("lit", res["lit"], (nl, depth + 1, P)))
+    _check_caps("fit_grads", depth, nl, tree=False)
+    kw = dict(nl=nl, depth=depth, atten=atten, want_trans=want_trans)
+    if v.device.type == "cpu":
+        return fit_grads_ref(tables, v, eye, g, res, **kw)
+    return _launch_adjoint(
+        "fit_grads", tables, v, nl, v.data_ptr(), g.data_ptr(),
+        res["bi"].data_ptr(), res["mid"].data_ptr(), res["lit"].data_ptr(),
+        P, *(float(e) for e in eye), depth, atten, int(want_trans))[1:]
+
+
 # ------------------------------------------------------------- host side
 
 def prepare_fit_inputs(camera: Camera, config: RenderConfig, target,
@@ -348,6 +391,16 @@ def _check_prep(prep, target) -> None:
                          "for the new target")
 
 
+def scene_tables(scene: FlatScene, config: RenderConfig, device=None):
+    """``(scene_c, tables, kw)``: the compacted and detached scene on
+    ``device`` (default: the GPU), its tables and the forwards' render
+    keywords."""
+    scene = compact_scene(scene.to(resolve_device(device)))
+    scene = scene.replace(**{k: t.detach()
+                             for k, t in scene.tensors().items()})
+    return scene, pack_scene(scene), render_kwargs(scene, config)
+
+
 def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
                   device=None):
     """The fit kernels' per-step inputs from a scene:
@@ -358,11 +411,7 @@ def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
     cotangent scale is that of ``mean((img - target)^2)`` over
     ``num_pixels`` RGB pixels.  K6 and K7 take ``kw`` with ``akw``'s
     ``pack`` (and K6 its ``g_scale``)."""
-    scene = compact_scene(scene.to(resolve_device(device)))
-    scene = scene.replace(**{k: t.detach()
-                             for k, t in scene.tensors().items()})
-    tables = pack_scene(scene)
-    kw = render_kwargs(scene, config)
+    scene, tables, kw = scene_tables(scene, config, device)
     pack = pack_widths(tables["tri"].shape[0], scene.num_spheres,
                        scene.num_materials, scene.num_lights)
     akw = dict(pack=pack, g_scale=2.0 / (num_pixels * 3), nl=kw["nl"],
@@ -456,6 +505,43 @@ def recompute_grads_kernel(scene: FlatScene, camera: Camera,
         tables, v.contiguous(), camera.eye.tolist(),
         g.reshape(-1, 3).contiguous(), tree=not scene.chain_exact,
         pack=akw["pack"], **kw)
+    return _grads_c(scene, dsph, dmat, dlight)
+
+
+def fit_grads_kernel(scene: FlatScene, camera: Camera, config: RenderConfig,
+                     residuals: Dict[str, torch.Tensor], g, *, pts=None,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """The split-mode backward (K8) under the cotangent ``g`` [H,W,3] from
+    the residual planes of ``render_forward_with_residuals`` (bi, mid
+    [depth+1,H,W], lit [nl,depth+1,H,W], from the same scene): the
+    compacted scene's gradient tables (``_grads_c``), as
+    adjoint_fused.py::fit_grads_pallas.  ``pts``: the screen points the
+    forward used, when not the camera's own.  Chain-exact scenes only, as
+    in the JAX package."""
+    if not scene.chain_exact:
+        raise ValueError(
+            "the fused in-kernel adjoint replays the bounce *chain*; "
+            "fractional-transparency scenes take the tree replay "
+            "(kernels/adjoint.py::l2_loss_kernel)")
+    device = resolve_device(device)
+    camera = camera.to(device)
+    w, h = config.width, config.height
+    if pts is None:
+        pts = screen_points(camera, w, h)
+    _, v = primary_rays(camera, torch.as_tensor(pts, device=device))
+    scene, tables, kw = scene_tables(scene, config, device)
+    K, P = config.max_depth + 1, w * h
+
+    def flat(t, *shape):
+        return torch.as_tensor(t, dtype=torch.float32,
+                               device=device).reshape(shape).contiguous()
+    res = dict(bi=flat(residuals["bi"], K, P),
+               mid=flat(residuals["mid"], K, P),
+               lit=flat(residuals["lit"], kw["nl"], K, P))
+    dsph, dmat, dlight = fit_grads(
+        tables, v.detach().contiguous(), camera.eye.tolist(), flat(g, P, 3),
+        res, nl=kw["nl"], depth=kw["depth"], atten=kw["atten"],
+        want_trans=kw["want_trans"])
     return _grads_c(scene, dsph, dmat, dlight)
 
 
@@ -582,10 +668,11 @@ def fit_value_and_grad(params, scene: FlatScene, camera: Camera,
     its field names (adjoint_fused.py::fit_value_and_grad).
 
     Single-sample configs: ``mode="twophase"`` runs the packed forward (K3)
-    and the adjoint (K4); ``mode="fused"`` the one-dispatch K6.
-    Fractional-transparency scenes always take K6's tree form.
-    ``mode="split"`` (the residual forward and K8) is not ported and raises
-    ``NotImplementedError`` where the JAX package would take it.
+    and the adjoint (K4); ``mode="fused"`` the one-dispatch K6;
+    ``mode="split"`` the residual forward (the chain kernel's unpacked
+    planes), the L2 cotangent in PyTorch and K8, with no pack and so no
+    2^24 limit on primitives, materials and lights.  Fractional-transparency
+    scenes always take K6's tree form.
 
     Supersampled configs (``samples > 1`` or ``force_jitter``), adaptive or
     not: per sample one forward render (the chain or tree kernel) and one
@@ -609,12 +696,20 @@ def fit_value_and_grad(params, scene: FlatScene, camera: Camera,
                                        generator=generator, device=device)
     if not scene_full.chain_exact:
         mode = "fused"  # tree scenes: the bounce tree's fwd+adjoint, K6
+    denom = float(config.height * config.width * 3)
     if mode == "split":
-        raise NotImplementedError("mode='split' needs the residual forward "
-                                  "and K8 (ROADMAP.md queue 1 item 6)")
+        # adjoint_fused.py:1678-1687: the cotangent is XLA's there, outside
+        # any kernel; here PyTorch's, in the same order as K4's prologue
+        img, res = render_forward_with_residuals(scene_full, camera, config,
+                                                 device=device)
+        diff = img - torch.as_tensor(target, dtype=torch.float32,
+                                     device=img.device).reshape(img.shape)
+        grads_c = fit_grads_kernel(scene_full, camera, config, res,
+                                   (2.0 / denom) * diff, device=device)
+        return (torch.mean(diff * diff),
+                grads_to_fitparams(params, scene_full, grads_c))
     impl = (twophase_loss_grads_kernel if mode == "twophase"
             else fused_loss_grads_kernel)
     sq_sum, grads_c = impl(scene_full, camera, config, target, prep=prep,
                            device=device)
-    denom = float(config.height * config.width * 3)
     return sq_sum / denom, grads_to_fitparams(params, scene_full, grads_c)

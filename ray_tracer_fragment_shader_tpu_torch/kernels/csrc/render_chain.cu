@@ -1,29 +1,41 @@
 // Chain forward render kernel: primary-ray directions in, RGB out, over
-// depth+1 bounce levels; with PACKED also one packed residual per level.
+// depth+1 bounce levels; with PACKED also one packed residual per level,
+// with RESIDUALS the unpacked residual planes.
 //
 // Replaces the JAX package's kernels/render_pallas.py::_render_tile_kernel
-// (its device code: _make_tile_ops and _chain_forward) and, as the PACKED
-// instantiation, render_pallas.py::_render_tile_packed_kernel (phase 1 of
-// the fit path).  It serves every scene whose materials have all-0 or all-1
+// (its device code: _make_tile_ops and _chain_forward), in its plain form
+// and, as the RESIDUALS instantiation, in its residual form
+// (_call_kernel(with_residuals=True), reached from
+// render_forward_with_residuals: the forward of the split-mode fit and of
+// render_image_diff); and, as the PACKED instantiation,
+// render_pallas.py::_render_tile_packed_kernel (phase 1 of the two-phase
+// fit).  It serves every scene whose materials have all-0 or all-1
 // transparency: there the bounce tree is a single path, and each level
 // takes the transmitted child if the material transmits, else the
 // reflected one.
 //
-// Bound: compute.  A pixel moves 24 bytes of device memory (12 in, 12 out;
-// PACKED adds 4 per level) against thousands of FP32 operations (one
-// closest-hit sweep plus one shadow sweep per light at every level).  The
-// design therefore keeps the scene in shared memory, one thread per pixel,
-// and cuts work that adds exactly zero: a ray that misses ends its chain,
-// and an all-opaque scene's shadow sweep stops at the first occluder.  The
-// packed forward is the same image code, as the JAX package keeps every
+// Bound: compute for the image and PACKED.  A pixel moves 24 bytes of
+// device memory (12 in, 12 out; PACKED adds 4 per level) against thousands
+// of FP32 operations (one closest-hit sweep plus one shadow sweep per light
+// at every level).  RESIDUALS writes (2+nl)*4 bytes per level, a bi, a mid
+// and a lit plane per light (tile_ops.cuh::ResidualWriter), which makes it
+// the one forward bound by its bytes at config 3.  The design therefore
+// keeps the scene in shared memory, one thread per pixel, and cuts work
+// that adds exactly zero: a ray that misses ends its chain, and an
+// all-opaque scene's shadow sweep stops at the first occluder.  Each
+// residual form is the same image code, as the JAX package keeps every
 // chain forward one program shape; levels after the chain ends are still
-// stored, with the value a dead lane has there.  This first version aims
-// to be right; it is not tuned.
+// stored, with the value a dead lane has there.  RESIDUALS has no 2^24
+// pack limit: only the 32-bit lit word caps it, at 32 lights.  This first
+// version aims to be right; it is not tuned.
 #include "tile_ops.cuh"
 
 namespace rtfs {
 
-template <bool WANT_TRANS, bool PACKED>
+// What a chain kernel writes besides the image.
+enum class ChainOut { kImage, kPacked, kResiduals };
+
+template <bool WANT_TRANS, ChainOut OUT>
 __global__ void __launch_bounds__(256)
 render_chain_kernel(const float* __restrict__ tables, Params prm,
                     const float* __restrict__ v, float* __restrict__ out,
@@ -34,19 +46,22 @@ render_chain_kernel(const float* __restrict__ tables, Params prm,
   if (p >= num_pixels) return;
 
   float col[3] = {0.0f, 0.0f, 0.0f};
+  ResidualWriter res(prm, prm.depth + 1, num_pixels, p);
   int level = chain_forward<WANT_TRANS>(
       s, prm, v[3 * p], v[3 * p + 1], v[3 * p + 2], col,
       [&](int lv, int bi, int mid, unsigned lit_bits) {
-        if constexpr (PACKED) {
+        if constexpr (OUT == ChainOut::kPacked) {
           // (bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid: exact f32 integers
           // (render_pallas.py:690-695)
           prm.pk[static_cast<size_t>(lv) * num_pixels + p] =
               static_cast<float>(bi + 1) +
               static_cast<float>(mid) * prm.bw_bi +
               static_cast<float>(lit_bits) * (prm.bw_bi * prm.bw_mid);
+        } else if constexpr (OUT == ChainOut::kResiduals) {
+          res.hit(lv, bi, mid, lit_bits);
         }
       });
-  if constexpr (PACKED) {
+  if constexpr (OUT == ChainOut::kPacked) {
     // the miss level and every later one: bi + 1 = 0, mid = 0 (the JAX
     // blend's miss values) and every lit bit set (a dead lane's shadow
     // sweep finds no occluder)
@@ -54,6 +69,8 @@ render_chain_kernel(const float* __restrict__ tables, Params prm,
                        (prm.bw_bi * prm.bw_mid);
     for (; level <= prm.depth; ++level)
       prm.pk[static_cast<size_t>(level) * num_pixels + p] = dead;
+  } else if constexpr (OUT == ChainOut::kResiduals) {
+    res.fill_to(prm.depth + 1);  // the same dead values, unpacked
   }
   out[3 * p] = col[0];
   out[3 * p + 1] = col[1];
@@ -75,8 +92,8 @@ extern "C" int rtfs_render_chain(const float* tables, int ns, int nt, int m,
   rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id,
                    small, atten, eye_x, eye_y, eye_z};
   return static_cast<int>(rtfs::launch_render(
-      want_trans ? rtfs::render_chain_kernel<true, false>
-                 : rtfs::render_chain_kernel<false, false>,
+      want_trans ? rtfs::render_chain_kernel<true, rtfs::ChainOut::kImage>
+                 : rtfs::render_chain_kernel<false, rtfs::ChainOut::kImage>,
       tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
 }
 
@@ -93,8 +110,27 @@ extern "C" int rtfs_render_packed(const float* tables, int ns, int nt, int m,
   rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id,
                    small, atten, eye_x, eye_y, eye_z, pk, bw_bi, bw_mid};
   return static_cast<int>(rtfs::launch_render(
-      want_trans ? rtfs::render_chain_kernel<true, true>
-                 : rtfs::render_chain_kernel<false, true>,
+      want_trans ? rtfs::render_chain_kernel<true, rtfs::ChainOut::kPacked>
+                 : rtfs::render_chain_kernel<false, rtfs::ChainOut::kPacked>,
+      tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+}
+
+// The residual forward: as rtfs_render_chain, plus `res` [2+nl, depth+1,
+// num_pixels] f32, the unpacked planes bi | mid | lit (tile_ops.cuh::
+// ResidualWriter).  At most kResidualMaxLights lights.
+extern "C" int rtfs_render_chain_residuals(
+    const float* tables, int ns, int nt, int m, int nl, const float* v,
+    float* out, int num_pixels, float eye_x, float eye_y, float eye_z,
+    int depth, float small, float atten, int white_id, int black_id,
+    int want_trans, float* res, void* stream) {
+  if (nl < 0 || nl > rtfs::kResidualMaxLights || res == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id, small, atten,
+                   eye_x, eye_y, eye_z, nullptr, 0.0f, 0.0f, res};
+  return static_cast<int>(rtfs::launch_render(
+      want_trans
+          ? rtfs::render_chain_kernel<true, rtfs::ChainOut::kResiduals>
+          : rtfs::render_chain_kernel<false, rtfs::ChainOut::kResiduals>,
       tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
 }
 

@@ -2,24 +2,31 @@
 // rayTraceRay recursion (MySdlApplication.cpp:1230-1248), for scenes with
 // fractional transparency.  At every hit a transmitted child weighted by the
 // transparency T and a reflected child weighted by the opacity 1-T are
-// traced, down to `depth` levels: 2^(depth+1)-1 nodes in preorder.
+// traced, down to `depth` levels: 2^(depth+1)-1 nodes in preorder.  With
+// RESIDUALS it also writes the unpacked residual planes of every node.
 //
 // Replaces the JAX package's kernels/render_pallas.py::_render_tile_tree_kernel
-// (its device code: _make_tile_ops and _tree_forward).
+// (its device code: _make_tile_ops and _tree_forward), in its plain form
+// and, as the RESIDUALS instantiation, in its residual form
+// (_call_kernel(tree=True, with_residuals=True), the forward of
+// render_image_diff on fractional-transparency scenes).
 //
 // Bound: compute, as the chain kernel (render_chain.cu), times the number of
-// live nodes.  The recursion becomes an explicit per-thread stack of depth+1
+// live nodes; RESIDUALS adds (2+nl)*4 bytes per node of every pixel, live or
+// not.  The recursion becomes an explicit per-thread stack of depth+1
 // entries visited in the same preorder (transmitted subtree before
 // reflected; tile_ops.cuh::tree_forward), so the colour sums in the same
 // order as the JAX kernel.  A node that misses, or a child whose weight gate
 // is 0, adds exactly zero and is not visited; on a chain-exact scene the
-// tree then costs what the chain does.  This first version aims to be
-// right; it is not tuned.
+// tree then costs what the chain does.  Its residuals are still written,
+// with a dead lane's values (tile_ops.cuh::ResidualWriter: the visits come
+// in increasing preorder index, so the gaps are filled as they appear).
+// This first version aims to be right; it is not tuned.
 #include "tile_ops.cuh"
 
 namespace rtfs {
 
-template <bool WANT_TRANS>
+template <bool WANT_TRANS, bool RESIDUALS>
 __global__ void __launch_bounds__(256)
 render_tree_kernel(const float* __restrict__ tables, Params prm,
                    const float* __restrict__ v, float* __restrict__ out,
@@ -30,8 +37,14 @@ render_tree_kernel(const float* __restrict__ tables, Params prm,
   if (p >= num_pixels) return;
 
   float col[3] = {0.0f, 0.0f, 0.0f};
+  const int nodes = (2 << prm.depth) - 1;
+  ResidualWriter res(prm, nodes, num_pixels, p);
   tree_forward<WANT_TRANS>(s, prm, v[3 * p], v[3 * p + 1], v[3 * p + 2], col,
-                           [](int, int, int, unsigned) {});
+                           [&](int k, int bi, int mid, unsigned lit_bits) {
+                             if constexpr (RESIDUALS)
+                               res.hit(k, bi, mid, lit_bits);
+                           });
+  if constexpr (RESIDUALS) res.fill_to(nodes);
   out[3 * p] = col[0];
   out[3 * p + 1] = col[1];
   out[3 * p + 2] = col[2];
@@ -52,7 +65,26 @@ extern "C" int rtfs_render_tree(const float* tables, int ns, int nt, int m,
   rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id,
                    small, atten, eye_x, eye_y, eye_z};
   return static_cast<int>(rtfs::launch_render(
-      want_trans ? rtfs::render_tree_kernel<true>
-                 : rtfs::render_tree_kernel<false>,
+      want_trans ? rtfs::render_tree_kernel<true, false>
+                 : rtfs::render_tree_kernel<false, false>,
+      tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+}
+
+// The residual forward of the tree: as rtfs_render_tree, plus `res`
+// [2+nl, 2^(depth+1)-1, num_pixels] f32, the unpacked planes bi | mid | lit
+// of every preorder node.  At most kResidualMaxLights lights.
+extern "C" int rtfs_render_tree_residuals(
+    const float* tables, int ns, int nt, int m, int nl, const float* v,
+    float* out, int num_pixels, float eye_x, float eye_y, float eye_z,
+    int depth, float small, float atten, int white_id, int black_id,
+    int want_trans, float* res, void* stream) {
+  if (depth < 0 || depth > rtfs::kTreeMaxDepth || nl < 0 ||
+      nl > rtfs::kResidualMaxLights || res == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id, small, atten,
+                   eye_x, eye_y, eye_z, nullptr, 0.0f, 0.0f, res};
+  return static_cast<int>(rtfs::launch_render(
+      want_trans ? rtfs::render_tree_kernel<true, true>
+                 : rtfs::render_tree_kernel<false, true>,
       tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
 }

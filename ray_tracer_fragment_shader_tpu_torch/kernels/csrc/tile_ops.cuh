@@ -37,7 +37,9 @@ constexpr float BIG = 3.0e38f;
 // Launch-time scalars.  The flat table buffer is
 // misc(16) | sph(ns*8) | tri(nt*24) | mat(m*20) | light(nl*8).  The packed
 // forward (render_chain.cu, PACKED) also writes pk[depth+1][num_pixels]
-// with the field widths bw_bi, bw_mid; the other kernels leave them unset.
+// with the field widths bw_bi, bw_mid; the residual forwards (RESIDUALS)
+// write the unpacked planes res (ResidualWriter); the other kernels leave
+// them unset.
 struct Params {
   int ns, nt, m, nl;
   int depth;
@@ -46,6 +48,7 @@ struct Params {
   float eye_x, eye_y, eye_z;
   float* pk;
   float bw_bi, bw_mid;
+  float* res;
 };
 
 struct Scene {
@@ -462,6 +465,47 @@ __device__ __forceinline__ void tree_forward(const Scene& s, const Params& prm,
     }
   }
 }
+
+// Most lights the residual forwards hold: the lit flags come from the
+// shadow sweep's 32-bit word (kernels/render.py::RESIDUAL_MAX_LIGHTS).
+constexpr int kResidualMaxLights = 32;
+
+// One pixel's unpacked residual planes, prm.res as f32 [2+nl][K][P]: plane
+// 0 the hit primitive id (-1 where the node misses or is not traced), 1 the
+// resolved material id, 2+li light li's lit flag (0/1), for the K chain
+// levels or preorder tree nodes; the layout of kernels/render.py::
+// render_residuals_ref.  Nodes are handed over in increasing order (a
+// chain's levels, a tree's preorder visits): each gap, and the tail after
+// the last, takes the value a dead TPU lane stores (bi = -1, mid = 0, every
+// lit flag 1), so every element is written once.  Neighbouring threads
+// write neighbouring addresses.
+struct ResidualWriter {
+  float* res;  // prm.res
+  size_t kp;   // K * num_pixels: the stride between planes
+  int num_pixels, p, nl, next;
+
+  __device__ ResidualWriter(const Params& prm, int K, int num_pixels, int p)
+      : res(prm.res), kp(static_cast<size_t>(K) * num_pixels),
+        num_pixels(num_pixels), p(p), nl(prm.nl), next(0) {}
+
+  __device__ void store(int k, int bi, int mid, unsigned lit_bits) {
+    float* r = res + static_cast<size_t>(k) * num_pixels + p;
+    r[0] = static_cast<float>(bi);
+    r[kp] = static_cast<float>(mid);
+    for (int li = 0; li < nl; ++li)
+      r[(2 + li) * kp] = ((lit_bits >> li) & 1u) ? 1.0f : 0.0f;
+  }
+  // dead values for the nodes before k
+  __device__ void fill_to(int k) {
+    for (; next < k; ++next) store(next, -1, 0, 0xffffffffu);
+  }
+  // node k hit: the gap before it, then its own values
+  __device__ void hit(int k, int bi, int mid, unsigned lit_bits) {
+    fill_to(k);
+    store(k, bi, mid, lit_bits);
+    next = k + 1;
+  }
+};
 
 // The signature both render kernels share.
 using RenderKernel = void (*)(const float*, Params, const float*, float*,

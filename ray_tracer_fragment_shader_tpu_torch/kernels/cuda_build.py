@@ -20,7 +20,8 @@ import time
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("tile_ops.cuh", "render_chain.cu", "render_tree.cu",
-           "adjoint_ops.cuh", "adjoint_packed.cu", "adjoint_fused.cu")
+           "adjoint_ops.cuh", "adjoint_packed.cu", "adjoint_fused.cu",
+           "fit_grads.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,6 +44,9 @@ _ENTRIES = {
     "rtfs_render_tree": _RENDER_ARGS + [_P],
     # + pk, bw_bi, bw_mid
     "rtfs_render_packed": _RENDER_ARGS + [_P, _F, _F, _P],
+    # + res (the unpacked residual planes)
+    "rtfs_render_chain_residuals": _RENDER_ARGS + [_P, _P],
+    "rtfs_render_tree_residuals": _RENDER_ARGS + [_P, _P],
     # tables; ns nt m nl; v img target mask pk; num_pixels; eye; depth;
     # atten g_scale bw_bi bw_mid; want_trans; partial num_blocks; stream
     "rtfs_adjoint_packed": ([_P] + [_I] * 4 + [_P] * 5 + [_I] + [_F] * 3
@@ -60,6 +64,10 @@ _ENTRIES = {
     "rtfs_recompute_adjoint": ([_P] + [_I] * 4 + [_P] * 2 + [_I] + [_F] * 3
                                + [_I] + [_F] * 2 + [_I] * 4 + [_F] * 2
                                + [_P, _I, _P]),
+    # tables; ns nt m nl; v g bi mid lit; num_pixels; eye; depth; atten;
+    # want_trans; partial num_blocks; stream
+    "rtfs_fit_grads": ([_P] + [_I] * 4 + [_P] * 5 + [_I] + [_F] * 3 + [_I]
+                       + [_F] + [_I] + [_P, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -15,13 +15,19 @@ Device side, one wrapper per kernel:
   fractional transparency;
 * ``render_packed`` — the chain forward plus one packed residual plane per
   bounce level (``pack_widths``): phase 1 of the fit path
-  (kernels/adjoint_fused.py).
+  (kernels/adjoint_fused.py);
+* ``render_residuals`` — the chain or tree forward plus the unpacked
+  residual planes ``bi``, ``mid`` and ``lit`` of every level or preorder
+  node (csrc/render_chain.cu, csrc/render_tree.cu): the forward of the
+  split-mode fit and of ``kernels/adjoint.py::render_image_diff``
+  (``render_forward_with_residuals``), with no pack and so no 2^24 limit.
 
 A wrapper given CUDA tensors launches its kernel, or raises; given CPU
 tensors it runs its plain PyTorch version (``render_chain_ref``,
-``render_tree_ref``), which the CPU tests hold against the JAX package and
-``chip_smoke.py`` holds the kernels against on the card.  ``LAUNCHES``
-counts kernel launches per wrapper.
+``render_tree_ref``, ``render_packed_ref``, ``render_residuals_ref``),
+which the CPU tests hold against the JAX package and ``chip_smoke.py``
+holds the kernels against on the card.  ``LAUNCHES`` counts kernel
+launches per wrapper.
 
 As in the JAX kernels, bounding-sphere pruning is skipped (no image effect
 for well-formed scenes) and the origin-primitive exclusion (SEMANTICS.md D1)
@@ -52,15 +58,20 @@ MISC_COLS = 16  # eye(3) board_pos(3) board_half board_square - -
 #: deepest bounce tree the tree kernel's per-thread stack holds
 #: (csrc/render_tree.cu::kTreeMaxDepth)
 TREE_MAX_DEPTH = 10
+#: most lights the residual forwards hold: the shadow sweep's lit flags
+#: travel in a 32-bit word (csrc/tile_ops.cuh::kResidualMaxLights)
+RESIDUAL_MAX_LIGHTS = 32
 #: dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT_BYTES = 232448
 
 #: kernel launches per wrapper, counted where each launches its kernel
-#: (``adjoint_packed``, ``fused_adjoint`` and ``recompute_adjoint`` live in
-#: kernels/adjoint_fused.py)
+#: (``adjoint_packed``, ``fused_adjoint``, ``recompute_adjoint`` and
+#: ``fit_grads`` live in kernels/adjoint_fused.py)
 LAUNCHES: Dict[str, int] = {"render_chain": 0, "render_tree": 0,
-                             "render_packed": 0, "adjoint_packed": 0,
-                             "fused_adjoint": 0, "recompute_adjoint": 0}
+                             "render_packed": 0, "render_chain_residuals": 0,
+                             "render_tree_residuals": 0, "adjoint_packed": 0,
+                             "fused_adjoint": 0, "recompute_adjoint": 0,
+                             "fit_grads": 0}
 
 
 def reset_launch_counts() -> None:
@@ -408,9 +419,11 @@ class _PlainOps:
 
 def _chain_ref(tables, v, eye, *, nl: int, depth: int, small: float,
                atten: float, checker_mats: Tuple[int, int], want_trans: bool,
-               pack: Optional[Tuple[float, float]] = None):
+               pack: Optional[Tuple[float, float]] = None,
+               residuals: bool = False):
     """The chain over depth+1 levels (render_pallas.py::_chain_forward):
-    ([P,3] RGB, [depth+1, P] packed residuals or None without ``pack``)."""
+    ([P,3] RGB, [depth+1, P] packed residuals with ``pack``, the unpacked
+    planes dict(bi, mid, lit) with ``residuals``, else None)."""
     P = v.shape[0]
     ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
                     checker_mats=checker_mats, all_opaque=not want_trans)
@@ -421,10 +434,17 @@ def _chain_ref(tables, v, eye, *, nl: int, depth: int, small: float,
     excl = ops.full(-1.0)
     alive = torch.ones(P, dtype=torch.bool, device=v.device)
     pks = []
+    res = dict(bi=[], mid=[], lit=[])
     for _ in range(depth + 1):
-        lits = [] if pack is not None else None
+        lits = [] if pack is not None or residuals else None
         hitm, bi, p, mats, dirs, col, mid = ops.node(
             ox, oy, oz, vx, vy, vz, excl, alive, thr, col, want_trans, lits)
+        if residuals:
+            # where(hitm, bi, -1), as the JAX kernel stores it; a dead
+            # level's mid is 0 and its lit flags 1 (no occluder is tested)
+            res["bi"].append(torch.where(hitm, bi, -1.0))
+            res["mid"].append(mid)
+            res["lit"].append([lit.float() for lit in lits])
         if pack is not None:
             # (bi+1) + mid*bw_bi + sum_li lit_li * bw_bi*bw_mid*2^li, every
             # term an exact f32 integer (render_pallas.py:690-695)
@@ -444,7 +464,20 @@ def _chain_ref(tables, v, eye, *, nl: int, depth: int, small: float,
                              mats[:, 14] > 0.5)
         alive = hitm & branch
         (ox, oy, oz), excl = p, bi
-    return torch.stack(col, -1), (torch.stack(pks) if pks else None)
+    img = torch.stack(col, -1)
+    if residuals:
+        return img, _stack_residuals(res, nl, depth + 1, P, v)
+    return img, (torch.stack(pks) if pks else None)
+
+
+def _stack_residuals(res, nl: int, K: int, P: int,
+                     v) -> Dict[str, torch.Tensor]:
+    """Per-node lists -> ``bi``/``mid`` [K, P] and ``lit`` [nl, K, P]."""
+    lit = (torch.stack([torch.stack([res["lit"][k][li] for k in range(K)])
+                        for li in range(nl)]) if nl
+           else v.new_zeros((0, K, P)))
+    return dict(bi=torch.stack(res["bi"]), mid=torch.stack(res["mid"]),
+                lit=lit)
 
 
 def render_chain_ref(tables, v, eye, **kw) -> torch.Tensor:
@@ -517,12 +550,22 @@ def render_tree_ref(tables, v, eye, *, nl: int, depth: int, small: float,
     img = torch.stack(col, -1)
     if not residuals:
         return img
-    K = n_tree_nodes(depth)
-    lit = (torch.stack([torch.stack([res["lit"][k][li] for k in range(K)])
-                        for li in range(nl)]) if nl
-           else v.new_zeros((0, K, P)))
-    return img, dict(bi=torch.stack(res["bi"]), mid=torch.stack(res["mid"]),
-                     lit=lit)
+    return img, _stack_residuals(res, nl, n_tree_nodes(depth), P, v)
+
+
+def render_residuals_ref(tables, v, eye, *, tree: bool, **kw):
+    """Plain PyTorch version of the residual forwards: ([P,3] RGB,
+    dict(bi, mid [K, P], lit [nl, K, P])) over the K = depth+1 chain levels
+    (``_chain_ref`` in its residual mode, written out level by level, not
+    through the pack, so no scene is too large for it) or the K =
+    ``n_tree_nodes(depth)`` preorder nodes of the tree
+    (``render_tree_ref``'s).  ``bi`` is the hit primitive id (sphere ids
+    offset by the packed triangle row count), -1 where the level or node
+    misses or is not traced; those hold mid 0 and every lit flag 1, what a
+    dead TPU lane stores.  The keyword arguments are ``render_kwargs``'s."""
+    if tree:
+        return render_tree_ref(tables, v, eye, residuals=True, **kw)
+    return _chain_ref(tables, v, eye, residuals=True, **kw)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -559,17 +602,18 @@ def _flat_tables(tables, nl: int) -> torch.Tensor:
 
 def _render(entry: str, plain, tables, v, eye, *, nl: int, depth: int,
             small: float, atten: float, checker_mats: Tuple[int, int],
-            want_trans: bool, pack: Optional[Tuple[float, float]] = None):
-    """Checks the inputs; runs ``plain`` on CPU tensors, and launches the
-    C entry ``rtfs_<entry>`` on CUDA tensors.  With ``pack`` the entry also
-    writes the [depth+1, P] packed residuals, and (rgb, pk) is returned."""
+            want_trans: bool, extra_shape: Optional[Tuple[int, ...]] = None,
+            extra_args: Sequence[float] = (), plain_kw: Optional[dict] = None):
+    """Checks the inputs; runs ``plain`` (with ``plain_kw`` too) on CPU
+    tensors, and launches the C entry ``rtfs_<entry>`` on CUDA tensors.
+    With ``extra_shape`` the entry also writes an f32 buffer of that shape
+    (its pointer, then ``extra_args``, follow the common arguments), and
+    (rgb, buffer) is returned."""
     _check(tables, v, depth, nl)
     kw = dict(nl=nl, depth=depth, small=small, atten=atten,
               checker_mats=checker_mats, want_trans=want_trans)
-    if pack is not None:
-        kw["pack"] = pack
     if v.device.type == "cpu":
-        return plain(tables, v, eye, **kw)
+        return plain(tables, v, eye, **kw, **(plain_kw or {}))
     if v.device.type != "cuda":
         raise ValueError(f"{entry}: kernels run on CUDA tensors, got "
                          f"{v.device}")
@@ -582,12 +626,12 @@ def _render(entry: str, plain, tables, v, eye, *, nl: int, depth: int,
                          f"a block may use")
     P = v.shape[0]
     out = torch.empty((P, 3), dtype=torch.float32, device=v.device)
-    pk = (torch.empty((depth + 1, P), dtype=torch.float32, device=v.device)
-          if pack is not None else None)
+    buf = (torch.empty(extra_shape, dtype=torch.float32, device=v.device)
+           if extra_shape is not None else None)
     if P == 0:
-        return out if pack is None else (out, pk)
-    extra = ([pk.data_ptr(), float(pack[0]), float(pack[1])]
-             if pack is not None else [])
+        return out if buf is None else (out, buf)
+    extra = ([buf.data_ptr(), *(float(a) for a in extra_args)]
+             if buf is not None else [])
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         rc = getattr(lib, f"rtfs_{entry}")(
@@ -598,7 +642,7 @@ def _render(entry: str, plain, tables, v, eye, *, nl: int, depth: int,
             *extra, ctypes.c_void_p(stream))
     cuda_build.check(lib, rc, entry)
     LAUNCHES[entry] += 1
-    return out if pack is None else (out, pk)
+    return out if buf is None else (out, buf)
 
 
 def render_chain(tables, v, eye: Sequence[float], **kw) -> torch.Tensor:
@@ -628,7 +672,37 @@ def render_packed(tables, v, eye: Sequence[float], *,
     ``render_packed_ref``.  ``pack`` is ``pack_widths(tables["tri"].shape[0],
     ns, m, nl)``; the other keyword arguments are ``render_kwargs``'s."""
     return _render("render_packed", render_packed_ref, tables, v, eye,
-                   pack=pack, **kw)
+                   extra_shape=(kw["depth"] + 1, v.shape[0]),
+                   extra_args=pack, plain_kw=dict(pack=pack), **kw)
+
+
+def render_residuals(tables, v, eye: Sequence[float], *, tree: bool, **kw):
+    """Residual forward: [P,3] primary-ray directions -> ([P,3] RGB,
+    dict(bi, mid [K, P], lit [nl, K, P])), the unpacked residual planes of
+    the K = depth+1 chain levels or, with ``tree``, the K =
+    ``n_tree_nodes(depth)`` preorder tree nodes (``render_residuals_ref``
+    says what they hold).  CUDA tensors launch the residual instantiation
+    of csrc/render_chain.cu or csrc/render_tree.cu (each its image code);
+    CPU tensors run ``render_residuals_ref``.  At most
+    ``RESIDUAL_MAX_LIGHTS`` lights, on every device; the other keyword
+    arguments are ``render_kwargs``'s."""
+    nl, depth = kw["nl"], kw["depth"]
+    if nl > RESIDUAL_MAX_LIGHTS:
+        raise ValueError(f"the residual forward holds at most "
+                         f"{RESIDUAL_MAX_LIGHTS} lights (a 32-bit lit "
+                         f"word), got {nl}")
+    if tree and depth > TREE_MAX_DEPTH:
+        raise ValueError(f"tree depth {depth} > TREE_MAX_DEPTH "
+                         f"({TREE_MAX_DEPTH})")
+    K = n_tree_nodes(depth) if tree else depth + 1
+    entry = "render_tree_residuals" if tree else "render_chain_residuals"
+    out = _render(entry, render_residuals_ref, tables, v, eye,
+                  extra_shape=(2 + nl, K, v.shape[0]),
+                  plain_kw=dict(tree=tree), **kw)
+    if v.device.type == "cpu":
+        return out
+    img, buf = out
+    return img, dict(bi=buf[0], mid=buf[1], lit=buf[2:])
 
 
 def pack_widths(nt: int, ns: int, m: int, nl: int) -> Tuple[float, float]:
@@ -679,6 +753,40 @@ def render_kwargs(scene: FlatScene, config: RenderConfig) -> dict:
                 small=config.small_number, atten=config.attenuation_factor,
                 checker_mats=scene.checker_mats,
                 want_trans=bool(scene.has_transmission))
+
+
+def render_forward_with_residuals(scene: FlatScene, camera,
+                                  config: RenderConfig, *, pts=None,
+                                  device=None):
+    """Single-sample forward with the fixed-topology residuals the replay
+    adjoints read: ``(img [H,W,3], dict(bi, mid [K,H,W], lit [nl,K,H,W]))``,
+    on ``device`` (the GPU by default; ``"cpu"`` runs the plain version).
+    The counterpart of render_pallas.py::render_forward_with_residuals.
+    Chain-exact scenes take the chain kernel (K = depth+1 levels), the
+    others the tree kernel (K = 2^(depth+1)-1 preorder nodes).  ``pts``:
+    screen points [H*W,3] in place of the camera's own.  Nothing here is
+    differentiated: the scene and camera are read as constants."""
+    if config.samples != 1 or config.force_jitter:
+        raise ValueError("residual forward supports exactly one sample")
+    if config.bf16_shading:
+        raise NotImplementedError("bf16_shading has no CUDA kernel yet")
+    device = resolve_device(device)
+    w, h = config.width, config.height
+    with torch.no_grad():
+        scene = compact_scene(scene.to(device))
+        if isinstance(camera, CameraConfig):
+            camera = Camera.from_config(camera, w, h, device=device)
+        else:
+            camera = camera.to(device)
+        if pts is None:
+            pts = screen_points(camera, w, h)
+        _, v = primary_rays(camera, torch.as_tensor(pts, device=device))
+        img, res = render_residuals(pack_scene(scene), v.contiguous(),
+                                    camera.eye.tolist(),
+                                    tree=not scene.chain_exact,
+                                    **render_kwargs(scene, config))
+    return img.reshape(h, w, 3), {k: t.reshape(*t.shape[:-1], h, w)
+                                  for k, t in res.items()}
 
 
 def render_image_kernel(scene: FlatScene, camera, config: RenderConfig, *,

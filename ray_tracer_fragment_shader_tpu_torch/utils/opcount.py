@@ -1,7 +1,7 @@
 """The work a kernel call needs on its inputs: FP32 operations and device
 bytes, for the roofline bound that ``chip_smoke.py`` reports beside each
-kernel's time (K2/K5 ``forward_work``, K4 ``adjoint_work``, K6/K7
-``fused_work``).
+kernel's time (K2/K5 and their residual forms ``forward_work``, K4
+``adjoint_work``, K6/K7 ``fused_work``, K8 ``fit_grads_work``).
 
 Operations are counted by hand from the CUDA sources, as written: each
 ``+ - * /``, ``sqrtf`` and ``rsqrtf`` is one, comparisons, selects and
@@ -24,7 +24,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..kernels.render import (_PlainOps, render_packed_ref,
+from ..kernels.render import (_PlainOps, n_tree_nodes, render_packed_ref,
                               render_tree_ref, unpack_residuals)
 
 #: H100 SXM peaks (NVIDIA data sheet, 700 W)
@@ -94,12 +94,15 @@ def _shadow_tests(ops: _PlainOps, px, py, pz, bi, hitm, light,
 
 
 def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
-                 nl: int, depth: int, small: float, atten: float,
-                 checker_mats, want_trans: bool) -> Dict[str, float]:
-    """FP32 operations and bytes of one chain (``tree=False``; ``packed``
-    adds the residual planes' bytes) or tree kernel call on [P,3] primary
-    directions ``v`` — what csrc/render_chain.cu or render_tree.cu runs on
-    these inputs."""
+                 residuals: bool = False, nl: int, depth: int, small: float,
+                 atten: float, checker_mats,
+                 want_trans: bool) -> Dict[str, float]:
+    """FP32 operations and bytes of one chain (``tree=False``) or tree
+    kernel call on [P,3] primary directions ``v`` — what
+    csrc/render_chain.cu or render_tree.cu runs on these inputs.
+    ``packed`` adds the packed plane's bytes (4 per level), ``residuals``
+    the unpacked planes' ((2+nl)*4 per level or preorder node), written for
+    every pixel; neither adds operations."""
     P = v.shape[0]
     ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
                     checker_mats=checker_mats, all_opaque=not want_trans)
@@ -154,7 +157,9 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
         node(o, d, ops.full(-1.0), alive, 0)
     flops = (RAY_SETUP * work["visits"] + TRI_TEST * work["tri_tests"]
              + SPH_TEST * work["sph_tests"] + per_hit * work["hits"])
-    nbytes = P * 24 + (P * 4 * (depth + 1) if packed else 0)
+    K = n_tree_nodes(depth) if tree else depth + 1
+    nbytes = (P * 24 + (P * 4 * (depth + 1) if packed else 0)
+              + (P * 4 * (2 + nl) * K if residuals else 0))
     return dict(work, ops=float(flops), bytes=float(nbytes))
 
 
@@ -301,3 +306,26 @@ def fused_work(tables, v, eye, *, tree: bool, pack, target=None, mask=None,
     return dict(fwd, ops=flops + adj, bytes=float(nbytes
                                                   + 4 * _ncols(tables, nl)),
                 live_pixels=int(g_live.sum()), adjoint_nodes=hits)
+
+
+def fit_grads_work(tables, g, res, *, nl: int, depth: int,
+                   want_trans: bool) -> Dict[str, float]:
+    """FP32 operations and bytes of one csrc/fit_grads.cu call (K8) on
+    these inputs: the chain adjoint of the pixels whose cotangent ``g``
+    [P,3] is nonzero (``_chain_adjoint_ops``) on the residual planes
+    ``res`` (bi, mid [depth+1, P], lit [nl, depth+1, P]).  Bytes: every
+    pixel's ``g``; for the pixels with a nonzero one, ``bi`` of each level
+    up to the first miss (or all depth+1), ``mid`` and the lit flags of the
+    levels that hit, and, where level 0 hits, the ray; the gradient tables
+    once.  The column reduction is not counted, as in ``adjoint_work``."""
+    P = g.shape[0]
+    nt = tables["tri"].shape[0]
+    g_live = (g != 0.0).any(-1)
+    flops, lead = _chain_adjoint_ops(res["bi"], res["lit"], g_live, nt=nt,
+                                     depth=depth, want_trans=want_trans)
+    n_lead = lead.sum(0)
+    bi_levels = int(torch.clamp(n_lead + 1, max=depth + 1)[g_live].sum())
+    nbytes = (12 * P + 4 * bi_levels + 4 * (1 + nl) * int(lead.sum())
+              + 12 * int((n_lead > 0).sum()) + 4 * _ncols(tables, nl))
+    return dict(hit_levels=int(lead.sum()), live_pixels=int(g_live.sum()),
+                ops=flops, bytes=float(nbytes))

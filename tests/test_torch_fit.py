@@ -346,20 +346,16 @@ def _fit_case():
     dict(force_jitter=True), dict(adaptive=True), dict(tree_scene=True)],
     ids=["fused", "split", "samples", "force_jitter", "adaptive", "tree"])
 def test_unported_fit_modes_raise(change):
-    """Of the fit modes that slice 2 left unported, only split (K8) still
-    raises; the others (K6 fused and tree, K7 supersampled and adaptive)
-    run and give a finite loss and gradients of the FitParams shapes."""
+    """The fit modes that slice 2 left unported all run now (K6 fused and
+    tree, K7 supersampled and adaptive, and split: the residual forward
+    and K8) and give a finite loss and gradients of the FitParams
+    shapes; none raises."""
     scene, camera, cfg, target, params = _fit_case()
     mode = change.pop("mode", "twophase")
     if change.pop("tree_scene", False):
         scene, _, _ = tpresets.fractional_glass(size=8)
         params = FitParams.from_scene(scene)
     cfg = dataclasses.replace(cfg, **change)
-    if mode == "split":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            AF.fit_value_and_grad(params, scene, camera, cfg, target,
-                                  mode=mode, device=CPU)
-        return
     loss, grads = AF.fit_value_and_grad(params, scene, camera, cfg, target,
                                         mode=mode, device=CPU)
     assert loss.dim() == 0 and bool(torch.isfinite(loss))

@@ -461,10 +461,20 @@ def _fit_case(size=8):
 
 
 def test_split_mode_raises_naming_k8():
+    """Split mode, once refused until K8 was ported, now runs on the CPU
+    through the plain versions of the residual forward and K8 and agrees
+    with the two-phase path (fields within 1e-5 of max); only an unknown
+    mode raises."""
     scene, camera, cfg, target, params = _fit_case()
-    with pytest.raises(NotImplementedError, match="K8"):
-        AF.fit_value_and_grad(params, scene, camera, cfg, target,
-                              mode="split", device=CPU)
+    K.reset_launch_counts()
+    loss, grads = AF.fit_value_and_grad(params, scene, camera, cfg, target,
+                                        mode="split", device=CPU)
+    assert all(n == 0 for n in K.LAUNCHES.values())
+    ref_loss, ref = AF.fit_value_and_grad(params, scene, camera, cfg, target,
+                                          device=CPU)
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-6)
+    for f in FIELDS:
+        assert _rel(ref[f].numpy(), grads[f].numpy()) <= 1e-5, f
     with pytest.raises(ValueError, match="unknown fit mode"):
         AF.fit_value_and_grad(params, scene, camera, cfg, target,
                               mode="other", device=CPU)

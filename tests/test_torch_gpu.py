@@ -1,8 +1,8 @@
 """The CUDA kernels on the card, against their plain PyTorch versions on
 the same inputs.  Every test here needs a CUDA GPU and skips without one.
 The file imports no JAX, so it runs on a machine without it (the fit
-kernels' tests at the end hold K3, K4, K6 and K7 against their plain
-versions):
+kernels' tests at the end hold K3, K4, K6, K7, the residual forwards and
+K8 against their plain versions):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -326,3 +326,81 @@ def test_tree_and_sampled_fits_run_on_the_card_by_default(cuda):
     assert all(g.is_cuda for g in grads.values())
     assert K.LAUNCHES["fused_adjoint"] == 1
     assert K.LAUNCHES["recompute_adjoint"] == K.LAUNCHES["render_tree"] == 2
+
+
+# ---- the split mode: residual forwards (K2/K5 residual) and K8 ----------
+
+@pytest.mark.parametrize("name", ["full_reflective", "glass_chain",
+                                  "fractional_glass"])
+def test_residual_kernel_matches_plain(cuda, name):
+    """The residual forwards: planes equal the plain version's, the image
+    within the budget and bit-identical to the plain kernel's."""
+    tables, v, eye, kw, _, _, _, tree = fused_case(name, cuda)
+    kname = "render_tree_residuals" if tree else "render_chain_residuals"
+    before = K.LAUNCHES[kname]
+    img, res = K.render_residuals(tables, v, eye, tree=tree, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[kname] == before + 1
+    ref_img, ref = K.render_residuals_ref(tables, v, eye, tree=tree, **kw)
+    assert_close_frac(ref_img, img, 0.01)
+    for k in ("bi", "mid", "lit"):
+        assert torch.equal(res[k], ref[k]), k
+    plain = K.render_tree if tree else K.render_chain
+    assert torch.equal(img, plain(tables, v, eye, **kw))
+
+
+@pytest.mark.parametrize("name", ["full_reflective", "glass_chain"])
+def test_fit_grads_kernel_matches_plain_and_k4(cuda, name):
+    """K8 under the L2 cotangent of the moved scene's residual render: each
+    table within 1e-3 of max|plain|, two launches bit-identical, and equal
+    to K4's tables on the same inputs bit for bit (one chain adjoint, the
+    cotangent formed in the same order, every kernel without fma)."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    tables, v, eye, kw, target, mask, akw, _ = fused_case(name, cuda)
+    img, res = K.render_residuals(tables, v, eye, tree=False, **kw)
+    g = (akw["g_scale"] * (img - target)).contiguous()
+    fkw = {k: akw[k] for k in ("nl", "depth", "atten", "want_trans")}
+    before = K.LAUNCHES["fit_grads"]
+    a = AF.fit_grads(tables, v, eye, g, res, **fkw)
+    b = AF.fit_grads(tables, v, eye, g, res, **fkw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fit_grads"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert_tables_close(a, AF.fit_grads_ref(tables, v, eye, g, res, **fkw))
+    img4, pk = K.render_packed(tables, v, eye, pack=akw["pack"], **kw)
+    q = AF.adjoint_packed(tables, v, eye, img4, target, mask, pk, **akw)
+    assert all(torch.equal(x, y) for x, y in zip(a, q[1:]))
+
+
+def test_split_and_render_image_diff_run_on_the_card_by_default(cuda):
+    from ray_tracer_fragment_shader_tpu_torch import (FitParams,
+                                                      fit_value_and_grad)
+    from ray_tracer_fragment_shader_tpu_torch.kernels.adjoint import (
+        l2_loss_kernel, render_image_diff)
+    scene, cam, cfg = presets.fit_target(size=N)
+    camera = Camera.from_config(cam, N, N)
+    target = K.render_image_kernel(scene, camera, cfg)
+    params = FitParams.from_scene(scene).to(cuda)
+    K.reset_launch_counts()
+    loss, grads = fit_value_and_grad(params, scene, camera, cfg, target,
+                                     mode="split")
+    torch.cuda.synchronize()
+    assert loss.is_cuda and all(g.is_cuda for g in grads.values())
+    assert K.LAUNCHES["render_chain_residuals"] == 1
+    assert K.LAUNCHES["fit_grads"] == 1
+    assert K.LAUNCHES["render_packed"] == K.LAUNCHES["adjoint_packed"] == 0
+    eye = camera.eye.clone().requires_grad_()
+    l2 = l2_loss_kernel(params, scene,
+                        dataclasses.replace(camera, eye=eye), cfg, target)
+    l2.backward()
+    # the eye leaf lies on the CPU: .to(device) carries its gradient back
+    assert l2.is_cuda and eye.grad is not None
+    assert eye.grad.device == eye.device
+    assert all(getattr(params, f).grad is not None
+                for f in FitParams.FIELDS)
+    tree, tcam, tcfg = presets.fractional_glass(size=N, depth=2)
+    img = render_image_diff(tree, tcam, tcfg)
+    torch.cuda.synchronize()
+    assert img.is_cuda and K.LAUNCHES["render_chain_residuals"] == 2
+    assert K.LAUNCHES["render_tree_residuals"] == 1

@@ -82,4 +82,33 @@ def test_every_module_is_found():
             "ray_tracer_fragment_shader_tpu_torch.diff.fit",
             "ray_tracer_fragment_shader_tpu_torch.utils.checkpoint",
             "ray_tracer_fragment_shader_tpu_torch.cli",
-            "ray_tracer_fragment_shader_tpu_torch.scene.flat"} <= names
+            "ray_tracer_fragment_shader_tpu_torch.scene.flat",
+            "ray_tracer_fragment_shader_tpu_torch.oracle.numpy_ref",
+            "ray_tracer_fragment_shader_tpu_torch.oracle.gradcheck",
+            "ray_tracer_fragment_shader_tpu_torch.grad_bar"} <= names
+
+
+def test_oracle_and_grad_bar_import_no_jax():
+    """The card's machine has no JAX: the port's oracle copy and the grad
+    bar it referees import none of it, nor the JAX package (whose
+    oracle imports jax through its scene module)."""
+    code = (
+        "import sys\n"
+        "import ray_tracer_fragment_shader_tpu_torch.grad_bar\n"
+        "import ray_tracer_fragment_shader_tpu_torch.oracle.gradcheck\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ray_tracer_fragment_shader_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+    with open(os.path.join(PORT_DIR, "grad_bar.py")) as f:
+        assert not re.search(r"^\s*(try\s*:|except\b)", f.read(), re.M)
+
+
+def test_split_mode_sources_and_entries_are_listed():
+    from ray_tracer_fragment_shader_tpu_torch.kernels import cuda_build
+    assert "fit_grads.cu" in cuda_build.SOURCES
+    assert {"rtfs_render_chain_residuals", "rtfs_render_tree_residuals",
+            "rtfs_fit_grads"} <= set(cuda_build._ENTRIES)

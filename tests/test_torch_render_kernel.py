@@ -186,9 +186,12 @@ def test_cpu_tensors_never_launch_kernels():
     K.render_image_kernel(scene, cam, cfg, device="cpu")
     K.render_image_kernel(scene.replace(chain_exact=False), cam, cfg,
                           device="cpu")
+    K.render_forward_with_residuals(scene, cam, cfg, device="cpu")
     assert K.LAUNCHES == {"render_chain": 0, "render_tree": 0,
-                          "render_packed": 0, "adjoint_packed": 0,
-                          "fused_adjoint": 0, "recompute_adjoint": 0}
+                          "render_packed": 0, "render_chain_residuals": 0,
+                          "render_tree_residuals": 0, "adjoint_packed": 0,
+                          "fused_adjoint": 0, "recompute_adjoint": 0,
+                          "fit_grads": 0}
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
