@@ -12,8 +12,9 @@ the radiance is a small closed-form function of the scene parameters, which
 version of the hand-written adjoint kernels (csrc/adjoint_packed.cu,
 csrc/adjoint_fused.cu), with which it shares no code.
 
-Rows are gathered by id (``_take``), not by [P, N] one-hot products, so a
-2048² frame of a 66-primitive scene fits in memory.
+Rows are gathered by id (``_gather_rows``), not by [P, N] one-hot
+products, so a 2048² frame of a 66-primitive scene fits in memory; only
+the gather's backward forms one-hot blocks, a chunk of pixels at a time.
 
 ``render_image_diff`` is a ``torch.autograd.Function`` whose forward is the
 residual forward kernel (kernels/render.py::render_forward_with_residuals,
@@ -37,13 +38,50 @@ from .render import (compact_scene, render_forward_with_residuals,
                      resolve_device)
 
 
+#: pixels whose cotangents one [chunk, rows] one-hot product sums at once
+#: in the gather's backward
+_GATHER_CHUNK = 1 << 18
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` whose backward sums each row's cotangents as one-hot
+    products over fixed chunks of pixels: a fixed order, so deterministic,
+    and parallel.  The backward of ``table[idx]`` itself, an accumulating
+    ``index_put_``, adds the pixels that share a row one after another on
+    the GPU, and here most pixels share a few rows (the floor's, and row 0
+    for every unselected lane)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat = g.reshape(g.shape[0], -1)
+        out = flat.new_zeros((ctx.rows, flat.shape[1]))
+        for s in range(0, idx.shape[0], _GATHER_CHUNK):
+            i = idx[s:s + _GATHER_CHUNK]
+            hot = flat.new_zeros((i.shape[0], ctx.rows)).scatter_(
+                1, i[:, None], 1.0)
+            out.addmm_(hot.T, flat[s:s + _GATHER_CHUNK])
+        return out.reshape(ctx.rows, *g.shape[1:]), None
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for an int64 id per pixel (``_GatherRows``)."""
+    return _GatherRows.apply(table, idx)
+
+
 def _take(table: torch.Tensor, idx: torch.Tensor,
           sel: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` where ``sel``, else 0 (rows [P, ...]); ``idx`` is an
     f32 id plane, clamped so unselected lanes read row 0."""
     if table.shape[0] == 0:
         return table.new_zeros((idx.shape[0], *table.shape[1:]))
-    rows = table[idx.clamp(0, table.shape[0] - 1).long()]
+    rows = _gather_rows(table, idx.clamp(0, table.shape[0] - 1).long())
     mask = sel.reshape(-1, *([1] * (table.dim() - 1)))
     return torch.where(mask, rows, torch.zeros_like(rows))
 
@@ -118,10 +156,10 @@ def _node_math(geom, o, v, bik, midl, lits, atten: float):
 
     # material fields by the resolved id (0 on a miss, as the blend gives)
     mi = midl.long()
-    amb, dif, spe = (geom[k][mi] for k in ("mat_ambient", "mat_diffuse",
-                                           "mat_specular"))
-    trn = geom["mat_transparency"][mi]
-    rho = geom["mat_refraction"][mi]
+    amb, dif, spe, trn, rho = (
+        _gather_rows(geom[k], mi)
+        for k in ("mat_ambient", "mat_diffuse", "mat_specular",
+                  "mat_transparency", "mat_refraction"))
     take_t = geom["take_t"][mi]
     refl_ok = geom["refl_ok"][mi]
 
