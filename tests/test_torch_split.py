@@ -311,6 +311,26 @@ def test_l2_loss_kernel_backward_matches_split():
         assert _rel(ref[f].numpy(), got.numpy()) <= 1e-5, f
 
 
+@pytest.mark.parametrize("shape", [(5, 3), (5,)], ids=["rows", "scalars"])
+def test_gather_rows_backward_sums_each_row_over_chunks(monkeypatch, shape):
+    """The replay's row gather: the forward is ``table[idx]``; the backward
+    sums each row's cotangents over several chunks of pixels, as
+    ``index_add_`` does (float32 reassociation apart)."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import adjoint as A
+    monkeypatch.setattr(A, "_GATHER_CHUNK", 7)
+    rng = np.random.RandomState(5)
+    table = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    table.requires_grad_()
+    idx = torch.from_numpy(rng.randint(0, shape[0], size=40))
+    g = torch.from_numpy(
+        rng.standard_normal((40, *shape[1:])).astype(np.float32))
+    rows = A._gather_rows(table, idx)
+    assert torch.equal(rows, table.detach()[idx])
+    rows.backward(g)
+    ref = torch.zeros(shape).index_add_(0, idx, g)
+    torch.testing.assert_close(table.grad, ref, rtol=1e-6, atol=1e-6)
+
+
 def test_render_image_diff_keeps_cpu_leaves_through_to():
     """Leaves on one device, the render on the device asked for: the
     gradient comes back to the leaf (``.to`` keeps autograd)."""
