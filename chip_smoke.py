@@ -100,7 +100,23 @@ Phases (each raises on failure; the script then exits non-zero):
    fractional_glass 1024^2 d3 against their plain versions; K8 at config 3
    and config 5 2048^2 with K4 alternated (K4, K8, K8, K4), its plain
    version at config 3; the split step and the ``render_image_diff`` step
-   on the host clock.
+   on the host clock;
+13. the probes (``probe_phase``): the op-class blends of the bench's
+   chain forward, two-phase and fused steps at config 3 and of the tree
+   forward at fractional_glass 1024^2 d3 (at most four K9 schedules), K9's
+   libraries for them and P3's, P1's and P2's built at once with
+   -fmad=false, their registers and spills (ptxas) and the SASS opcodes of
+   P1's mul, add and mix (no FFMA); K9 on each blend, P1's 14 classes and
+   P2's mul and mix in f32 and bf16 against their plain versions at two
+   tiles and 8 iterations, twice bit-identical (f32 within 1e-5 of
+   max|plain|, bf16 2^-7); K9's rate for each blend and the P1 mul rate,
+   each at most 1.05 of SMs x 128 x the SM clock sampled during the run;
+   with the launch counters zeroed just before each: ``bench.main`` at
+   config 3 (``vs_baseline`` in (0, 1.05]), P1 and P2 at 64 iterations,
+   P3 over 2, 8, 32 and 96 chains; the probes' times against their plain
+   versions; and each render and fit kernel's bound at K9's rate for its
+   family's blend (``k9_bound_ms`` in the ``kernels`` line, the larger of
+   that and its bytes' time).
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.
@@ -162,7 +178,32 @@ KERNEL_SOURCES = {
                   "fit_grads.cu",
                   "ray_tracer_fragment_shader_tpu/kernels/"
                   "adjoint_fused.py:814"),
+    "mix_chain": ("ray_tracer_fragment_shader_tpu_torch/kernels/csrc/"
+                  "mix_probe.cu",
+                  "ray_tracer_fragment_shader_tpu/utils/roofline.py:161"),
+    "op_chain": ("ray_tracer_fragment_shader_tpu_torch/kernels/csrc/"
+                 "op_probe.cu", "scripts/vpu_op_probe.py:119"),
+    "bf16_chain": ("ray_tracer_fragment_shader_tpu_torch/kernels/csrc/"
+                   "bf16_probe.cu", "scripts/bf16_probe.py:71"),
 }
+#: tolerances of the probes against their plain versions (max|diff| /
+#: max|plain|): f32 chains 1e-5 (rsqrtf and rcp.approx.f32 are not IEEE,
+#: a few ulps a step), bf16 chains 2^-7 (one bf16 rounding of rsqrtf's
+#: result may differ)
+PROBE_TOL, BF16_TOL = 1e-5, 2.0 ** -7
+#: a chain rate above this share of SMs x 128 x the SM clock was folded
+CEILING_SHARE = 1.05
+#: the K9 blend phase 13 prices each render and fit kernel's bound at:
+#: the blend of its family's bench step (the adjoints K4 and K8 share
+#: chain_adjoint; K7 is K6's source) or the tree forward
+FAMILY = {"render_chain": "chain forward", "render_packed": "chain forward",
+          "render_chain_residuals": "chain forward",
+          "render_tree": "tree forward",
+          "render_tree_residuals": "tree forward",
+          "adjoint_packed": "two-phase fwd+bwd",
+          "fit_grads": "two-phase fwd+bwd",
+          "fused_adjoint": "fused fwd+bwd",
+          "recompute_adjoint": "fused fwd+bwd"}
 FIELDS = ("sph_center", "sph_radius", "light_pos", "mat_diffuse",
           "mat_specular", "mat_ambient")
 
@@ -329,6 +370,257 @@ def hold_adjoint(AF, label, x, got):
     ref = AF.adjoint_packed_ref(x["tables"], x["v"], x["eye"], x["img"],
                                 x["target"], x["mask"], x["pk"], **x["akw"])
     return hold_grads("adjoint_packed", label, got, ref)
+
+
+def hold_probe(kname, label, got, ref, tol):
+    """A probe kernel's output against its plain version's: max|diff| <=
+    tol * max|plain|.  Returns max|diff|."""
+    import torch
+    rel = rel_err(got, ref)
+    print(f"check {kname:10s} {label:34s} max|diff|/max|plain| {rel:.3e} "
+          f"(tolerance {tol:.3g})")
+    check(bool(torch.isfinite(got).all()) and rel <= tol,
+          f"{kname} disagrees with its plain version on {label}")
+    return (got - ref).abs().max().item()
+
+
+def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
+    """Phase 13: K9, P1 and P2 against their plain versions; K9's rates
+    for the four blends and the P1 mul rate against the card's ceiling;
+    the bench, P1, P2 and P3 driven with the launch counters zeroed just
+    before; the probes' times; and the bounds of K2-K8 on their timed
+    inputs (``kernel_works``) at K9's rates for their blends.  Fills ``launches``, ``errs``, ``times`` and
+    ``bounds`` for mix_chain, op_chain and bf16_chain; returns the extra
+    keys of the kernels line ({kernel: {k9_bound_ms, k9_bound_by,
+    k9_rate_ops_per_s}})."""
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch import bench
+    from ray_tracer_fragment_shader_tpu_torch.kernels import cuda_build
+    from ray_tracer_fragment_shader_tpu_torch.kernels import probe as PR
+    from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import Camera
+    from ray_tracer_fragment_shader_tpu_torch.probes import (
+        bf16_probe, common, op_probe, pressure_probe)
+    from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    from ray_tracer_fragment_shader_tpu_torch.utils import opcount
+    from ray_tracer_fragment_shader_tpu_torch.utils import roofline as RL
+    from ray_tracer_fragment_shader_tpu_torch.utils.timing import time_ms
+    t13 = time.perf_counter()
+    sms = PR.sm_count(dev)
+    max_clock = float(PR.gpu_query("clocks.max.sm").split()[0])
+
+    # the four blends, each as the bench (or, for the tree, its forward)
+    # prices it at its own inputs
+    fg = presets.fractional_glass(size=1024, depth=3)
+    fg_cam = Camera.from_config(fg[1], fg[2].width, fg[2].height, device=dev)
+    works = {
+        "chain forward": bench.last_step_work(
+            bench.knobs({"BENCH_FORWARD_ONLY": "1"}), dev),
+        "two-phase fwd+bwd": bench.last_step_work(bench.knobs({}), dev),
+        "fused fwd+bwd": bench.last_step_work(
+            bench.knobs({"BENCH_ADJOINT": "fused"}), dev),
+        "tree forward": opcount.step_work(fg[0], fg_cam, fg[2], None,
+                                          device=dev),
+    }
+    blends, scheds = {}, {}
+    for name, w in works.items():
+        c = dict(w["fwd"])
+        for k, v in w["bwd"].items():
+            c[k] = c.get(k, 0.0) + v
+        blends[name] = c
+        scheds[name] = RL._rewrite_schedule(RL.mix_schedule(c))[0]
+        tot = RL.flat_slots(c)
+        print(f"blend {name:18s} ({'+'.join(w['kernels'])}): "
+              + " ".join(f"{k} {v / tot:.4f}" for k, v in sorted(c.items()))
+              + f"; schedule {PR.mix_defines(scheds[name])[0]}")
+    check(len(set(scheds.values())) <= 4, "more than four K9 schedules")
+    p3_ncs = (2, 8, 32, 96)
+    two = scheds["two-phase fwd+bwd"]
+    specs = ([("mix_probe.cu", PR.mix_defines(sc)) for sc in scheds.values()]
+             + [("mix_probe.cu", PR.mix_defines(two, (nc,)))
+                for nc in p3_ncs]
+             + [("op_probe.cu", ()), ("bf16_probe.cu", ())])
+    t0 = time.perf_counter()
+    cuda_build.build_probes(specs)
+    print(f"probe build: {len(set(specs))} libraries, "
+          f"{time.perf_counter() - t0:.2f} s (all nvcc at once, -fmad=false)")
+    for source, defines in dict.fromkeys(specs):
+        kern = {"mix_probe.cu": "mix_kernel", "op_probe.cu": "op_kernel",
+                "bf16_probe.cu": r"(?:f32|bf16)_kernel"}[source]
+        res = PR.ptxas_resources(cuda_build.probe_log(source, defines), kern)
+        regs = sorted({(r.get("registers"), r.get("spill_stores"))
+                       for r in res.values()})
+        print(f"  ptxas {source} {len(res)} kernels: (registers, spill "
+              f"stores) {regs}")
+    sass = PR.sass_opcodes(cuda_build.probe_library_path("op_probe.cu"),
+                           "op_kernel")
+    for inj in ("mul", "add", "mix"):
+        ops = sass[(PR.INJECTS.index(inj), 4)]
+        print(f"  SASS op_kernel<{inj}, nc=4>: "
+              + " ".join(f"{k} {v}" for k, v in sorted(ops.items())))
+        # (an HFMA2 of zeros is how the compiler moves a constant)
+        check(ops.get("FFMA", 0) == 0,
+              f"op_kernel<{inj}> holds fused multiply-adds")
+    sass = PR.sass_opcodes(cuda_build.probe_library_path(
+        "mix_probe.cu", PR.mix_defines(two)), "mix_kernel")
+    print("  SASS mix_kernel<nc=2> (two-phase blend; IEEE div/sqrt "
+          "sequences hold their own FFMA): " + " ".join(
+              f"{k} {v}" for k, v in sorted(sass[(2,)].items())))
+
+    # K9, P1, P2 against their plain versions at grid 2, iters 8
+    errs.update(mix_chain=[], op_chain=[], bf16_chain=[])
+    x2 = RL.probe_input(2, dev)
+
+    def twice_probe(fn, kname, label):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"{kname} is not deterministic on {label}")
+        return a
+    for name, sc in scheds.items():
+        for nc in (2, 8):
+            got = twice_probe(lambda: PR.mix_chain(x2, iters=8, nc=nc,
+                                                   sched=sc),
+                              "mix_chain", name)
+            errs["mix_chain"].append(hold_probe(
+                "mix_chain", f"{name} nc={nc} iters=8", got,
+                RL.mix_chain_ref(x2, iters=8, nc=nc, sched=sc), PROBE_TOL))
+    for inj in PR.INJECTS:
+        got = twice_probe(lambda: PR.op_chain(x2, inject=inj, iters=8, nc=4),
+                          "op_chain", inj)
+        errs["op_chain"].append(hold_probe(
+            "op_chain", f"{inj} nc=4 iters=8", got,
+            PR.op_chain_ref(x2, inject=inj, iters=8, nc=4), PROBE_TOL))
+    for inj in PR.BF16_INJECTS:
+        for bf16 in (False, True):
+            got = twice_probe(lambda: PR.bf16_chain(
+                x2, inject=inj, bf16=bf16, iters=8, nc=4), "bf16_chain", inj)
+            errs["bf16_chain"].append(hold_probe(
+                "bf16_chain", f"{inj} {'bf16' if bf16 else 'f32'} nc=4 "
+                f"iters=8", got, PR.bf16_chain_ref(
+                    x2, inject=inj, bf16=bf16, iters=8, nc=4),
+                BF16_TOL if bf16 else PROBE_TOL))
+    print("all probes two launches bit-identical: True")
+
+    # rates: K9 at the blends, the P1 mul chain against the ceiling
+    x = RL.probe_input(sms * 8, dev)
+    rates = {}
+    with PR.ClockSampler() as clk:
+        for name in blends:
+            rates[name] = RL.mix_rate_details(blends[name], device=dev)
+        t_mul, mul_sweep = op_probe._best("mul", 256, 3, x)
+    clock = max(clk.samples) if clk.samples else max_clock
+    ceiling = common.fp32_ceiling(sms, clock)
+    for name, r in rates.items():
+        print(f"rate K9 {name:18s}: {r['rate'] / 1e12:.4f} T budget ops/s "
+              f"(nc {r['nc']}, {r['blocks_per_sm']} blocks/SM; "
+              f"{r['rate'] / ceiling:.4f} of the FP32 ceiling) sweep "
+              + " ".join(f"{k} {v / 1e12:.3f}" for k, v in r["sweep"].items())
+              + f" [{card}]")
+        check(r["rate"] <= CEILING_SHARE * ceiling,
+              f"K9 {name} reads above the ceiling: folded")
+    share = (1.0 / t_mul) / ceiling
+    print(f"rate P1 mul: {1.0 / t_mul / 1e12:.4f} T ops/s = {share:.4f} of "
+          f"{sms} SMs x 128 x {clock:.0f} MHz (sampled during the run: "
+          f"{min(clk.samples or [0]):.0f}-{clock:.0f} MHz, max "
+          f"{max_clock:.0f}) = {ceiling / 1e12:.3f} T; sweep (fs/step) "
+          f"{mul_sweep} [{card}]")
+    check(share <= CEILING_SHARE,
+          f"P1 mul reads {share:.3f} of the FP32 ceiling: folded")
+
+    # the main paths, each with the counters zeroed just before
+    def drive(label, fn, want):
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in K.LAUNCHES.items() if c}
+        print(f"path {label}: launches {counts}")
+        for k in want:
+            check(counts.get(k, 0) > 0, f"{label}: never launched {k}")
+        return out, counts
+    RL._measure_mix_rate_cached.cache_clear()
+    out, c = drive("bench (config 3 1024^2 d3 two-phase)",
+                   lambda: bench.main([]),
+                   ["mix_chain", "render_packed", "adjoint_packed"])
+    check(out["metric"] == "rays_per_s_per_chip_fwd_bwd_1024x1024_depth3"
+          and 0.0 < out["vs_baseline"] <= CEILING_SHARE
+          and out["device"] == torch.cuda.get_device_name(0),
+          f"bench: {out}")
+    launches["mix_chain"] = c["mix_chain"]
+    _, c = drive("P1 op_probe (iters 64)", lambda: op_probe.main(
+        ["--iters", "64", "--reps", "1", "--out", os.path.join(
+            REPO, common.OUT_DIR, "op_weights_smoke.json")]), ["op_chain"])
+    launches["op_chain"] = c["op_chain"]
+    _, c = drive("P2 bf16_probe (iters 64)", lambda: bf16_probe.main(
+        ["--iters", "64", "--reps", "1", "--out", os.path.join(
+            REPO, common.OUT_DIR, "bf16_probe_smoke.json")]), ["bf16_chain"])
+    launches["bf16_chain"] = c["bf16_chain"]
+    _, c = drive(f"P3 pressure curve nc {p3_ncs}",
+                 lambda: pressure_probe.curve(
+                     blends["two-phase fwd+bwd"], p3_ncs, 64, 2, dev),
+                 ["mix_chain"])
+    launches["mix_chain"] += c["mix_chain"]
+
+    # the probes' times at full width, against their plain versions
+    best = rates["two-phase fwd+bwd"]
+    xs = x[: sms * best["blocks_per_sm"] * 8]
+    per_step = best["per_step"]
+    timed = {
+        "mix_chain": (lambda: PR.mix_chain(
+            xs, iters=8, nc=best["nc"], sched=two,
+            blocks=sms * best["blocks_per_sm"]),
+            lambda: RL.mix_chain_ref(xs, iters=8, nc=best["nc"], sched=two),
+            xs.numel() * best["nc"] * 8 * per_step, 1.0, PROBE_TOL,
+            f"two-phase blend, nc {best['nc']}"),
+        "op_chain": (lambda: PR.op_chain(x, inject="mix", iters=8, nc=16,
+                                         blocks=sms * 8),
+                     lambda: PR.op_chain_ref(x, inject="mix", iters=8,
+                                             nc=16),
+                     x.numel() * 16 * 8 * 12, 1.0, PROBE_TOL, "mix, nc 16"),
+        # packed bf16x2: two lanes an instruction
+        "bf16_chain": (lambda: PR.bf16_chain(x, inject="mix", bf16=True,
+                                             iters=8, nc=16, blocks=sms * 8),
+                       lambda: PR.bf16_chain_ref(x, inject="mix", bf16=True,
+                                                 iters=8, nc=16),
+                       x.numel() * 16 * 8 * 12, 2.0, BF16_TOL,
+                       "bf16 mix, nc 16"),
+    }
+    for kname, (kern, plain, ops, lanes, tol, label) in timed.items():
+        n_el = xs.numel() if kname == "mix_chain" else x.numel()
+        errs[kname].append(hold_probe(kname, f"{label} timed", kern(),
+                                      plain(), tol))
+        tp1 = time_ms(plain, 1)
+        tk1, tk2 = time_ms(kern, 10), time_ms(kern, 10)
+        tp2 = time_ms(plain, 1)
+        tk, tp = (tk1 + tk2) / 2, (tp1 + tp2) / 2
+        bnd = ops / (lanes * common.fp32_ceiling(sms, max_clock)) * 1e3
+        times[kname], bounds[kname] = (tk, tp), (bnd, "operations")
+        print(f"time {kname} {label}, {n_el} elements, iters 8: kernel "
+              f"{tk:.4f} ms ({tk1:.4f}, {tk2:.4f}); "
+              f"plain {tp:.2f} ms; bound {bnd:.5f} ms ({ops:.4g} budget ops "
+              f"at {lanes:.0f} x {sms} SMs x 128 x {max_clock:.0f} MHz) "
+              f"[{card}]")
+
+    # the kernels' bounds on their timed inputs: their class ops at K9's
+    # rate for their blend, or their bytes, whichever is larger
+    k9 = {}
+    for kname, family in FAMILY.items():
+        w = kernel_works[kname]
+        rate = rates[family]["rate"]
+        t_ops = RL.flat_slots(w["classes"]) / rate * 1e3
+        t_bytes = w["bytes"] / opcount.PEAK_BYTES_PER_S * 1e3
+        b = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        k9[kname] = dict(k9_bound_ms=b, k9_bound_by=by,
+                         k9_rate_ops_per_s=rate)
+        print(f"bound {kname:22s} data sheet {bounds[kname][0]:.5f}"
+              f" ms ({bounds[kname][1]}); at K9's {family} rate "
+              f"{rate / 1e12:.4f} T: {b:.5f} ms ({by}: "
+              f"{RL.flat_slots(w['classes']):.4g} class ops {t_ops:.5f} ms, "
+              f"{w['bytes']:.4g} B {t_bytes:.5f} ms); kernel "
+              f"{times[kname][0]:.4f} ms = {b / times[kname][0]:.4f} of it "
+              f"[{card}]")
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    return k9
 
 
 def main():
@@ -753,6 +1045,7 @@ def main():
                         rays(*presets.fractional_glass(size=1024, depth=3))),
     }
     times, bounds = {}, {}
+    works = {}  # each kernel's work on its timed inputs, for phase 13
 
     def four_times(pk_fn, pp_fn, reps_k, reps_p):
         """(kernel ms, plain ms, runs) timed plain, kernel, kernel, plain."""
@@ -772,6 +1065,7 @@ def main():
         work = opcount.forward_work(tables, v, eye,
                                     tree=kname == "render_tree", **kw)
         bounds[kname] = opcount.bound_ms(work["ops"], work["bytes"])
+        works[kname] = work
         P = v.shape[0]
         times[kname] = (tk, tp)
         print(f"time {kname:12s} {label}: kernel {tk:.4f} ms "
@@ -834,6 +1128,7 @@ def main():
             times["render_packed"] = (tk3, tp3)
             times["adjoint_packed"] = (tk4, tp4)
             bounds["render_packed"], bounds["adjoint_packed"] = b3, b4
+            works.update(render_packed=w3, adjoint_packed=w4)
         del x, args, prep
         torch.cuda.empty_cache()
 
@@ -891,6 +1186,7 @@ def main():
         if label.startswith("config 3"):
             times["fused_adjoint"] = (tk, tp)
             bounds["fused_adjoint"] = b6
+            works["fused_adjoint"] = w6
         params = x["params"].to(dev)
         prep = AF.prepare_fit_inputs(x["camera"], x["cfg"], x["target"],
                                      device=dev)
@@ -930,6 +1226,7 @@ def main():
         if label.startswith("reference_demo"):
             times["recompute_adjoint"] = (tk, tp)
             bounds["recompute_adjoint"] = b7
+            works["recompute_adjoint"] = w7
         del x, args7
         torch.cuda.empty_cache()
 
@@ -1148,6 +1445,7 @@ def main():
                                     **kw)
         times[kname], bounds[kname] = (tk, tp), opcount.bound_ms(
             work["ops"], work["bytes"])
+        works[kname] = work
         print(f"time {kname} {label}: kernel {tk:.4f} ms ({r[0]:.4f}, "
               f"{r[1]:.4f}); plain {tp:.2f} ms ({r[2]:.2f}, {r[3]:.2f}); "
               f"bound {bounds[kname][0]:.5f} ms ({bounds[kname][1]}: "
@@ -1184,6 +1482,7 @@ def main():
                   + time_ms(lambda: AF.fit_grads_ref(*args8, **fkw), 1)) / 2
             print(f"time fit_grads {label}: plain {tp:.2f} ms [{card}]")
             times["fit_grads"], bounds["fit_grads"] = (t8, tp), b8
+            works["fit_grads"] = w8
             pd = FitParams.from_scene(preset[0]).to(dev)
             pd.load_state_dict(x["params"].state_dict())
 
@@ -1209,6 +1508,9 @@ def main():
         del x, args8, params
         torch.cuda.empty_cache()
 
+    # ---- 13. the probes, the bench, and bounds at K9's rates -----------
+    k9 = probe_phase(dev, card, works, launches, errs, times, bounds)
+
     kernels = []
     for k in KERNEL_SOURCES:
         kernels.append(dict(
@@ -1218,6 +1520,8 @@ def main():
             bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=None))
         if k in fracs:
             kernels[-1]["max_mismatch_frac"] = max(fracs[k])
+        if k in k9:
+            kernels[-1].update(k9[k])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

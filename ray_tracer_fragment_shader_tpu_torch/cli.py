@@ -6,10 +6,11 @@ object types (a-f) and board coordinates (``initScene2``,
 Hw4/MySdlApplication.cpp:1430-1493), then a 500x500 SDL/OpenGL window
 repainting the ray trace every frame (``onExecute``/``onRender``,
 ``:1631-1659``).  Here ``interactive`` replicates the menu and renders to
-an image file, ``render`` renders a named preset, and ``fit`` runs the
-differentiable-fit workload (BASELINE config 4).  All run through the
-kernels: on the GPU, the CUDA kernels; with ``--cpu``, their plain PyTorch
-versions.  Without ``--cpu`` and without a GPU they raise.
+an image file, ``render`` renders a named preset, ``fit`` runs the
+differentiable-fit workload (BASELINE config 4) and ``bench`` the headline
+benchmark (``bench.py``).  All run through the kernels: on the GPU, the
+CUDA kernels; with ``--cpu``, their plain PyTorch versions.  Without
+``--cpu`` and without a GPU they raise.
 
 Usage:
   python -m ray_tracer_fragment_shader_tpu_torch.cli render \
@@ -17,6 +18,7 @@ Usage:
   python -m ray_tracer_fragment_shader_tpu_torch.cli interactive --out scene.png
   python -m ray_tracer_fragment_shader_tpu_torch.cli fit --steps 100 \
       --out-dir fit_out
+  python -m ray_tracer_fragment_shader_tpu_torch.cli bench --size 1024
 """
 from __future__ import annotations
 
@@ -218,9 +220,21 @@ def cmd_fit(args):
     return params, history
 
 
+def cmd_bench(args):
+    """The port's headline benchmark (``bench.py``), with ``--size`` and
+    ``--depth`` as BENCH_SIZE and BENCH_DEPTH (JAX cli.py:232-241)."""
+    from . import bench
+    if args.size:
+        os.environ["BENCH_SIZE"] = str(args.size)
+    if args.depth is not None:
+        os.environ["BENCH_DEPTH"] = str(args.depth)
+    return bench.main([], device="cpu" if args.cpu else None)
+
+
 def main(argv=None):
     """Runs one subcommand; returns its result: the (last) rendered [H,W,3]
-    image, or for ``fit`` (params, loss history)."""
+    image, for ``fit`` (params, loss history), for ``bench`` its JSON
+    object."""
     parser = argparse.ArgumentParser(prog="ray_tracer_fragment_shader_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -248,6 +262,15 @@ def main(argv=None):
                    help="only 1: the multi-view recipe is not ported yet")
     p.add_argument("--out-dir", default=None)
     p.set_defaults(fn=cmd_fit)
+
+    p = sub.add_parser("bench", help="run the headline benchmark")
+    p.add_argument("--size", type=int, default=None,
+                   help="square image size (BENCH_SIZE)")
+    p.add_argument("--depth", type=int, default=None,
+                   help="max bounce depth (BENCH_DEPTH)")
+    p.add_argument("--cpu", action="store_true",
+                   help="the kernels' plain versions on the CPU (no SOL)")
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     return args.fn(args)

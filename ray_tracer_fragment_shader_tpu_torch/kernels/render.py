@@ -66,12 +66,14 @@ SMEM_LIMIT_BYTES = 232448
 
 #: kernel launches per wrapper, counted where each launches its kernel
 #: (``adjoint_packed``, ``fused_adjoint``, ``recompute_adjoint`` and
-#: ``fit_grads`` live in kernels/adjoint_fused.py)
+#: ``fit_grads`` live in kernels/adjoint_fused.py, the probes ``mix_chain``,
+#: ``op_chain`` and ``bf16_chain`` in kernels/probe.py)
 LAUNCHES: Dict[str, int] = {"render_chain": 0, "render_tree": 0,
                              "render_packed": 0, "render_chain_residuals": 0,
                              "render_tree_residuals": 0, "adjoint_packed": 0,
                              "fused_adjoint": 0, "recompute_adjoint": 0,
-                             "fit_grads": 0}
+                             "fit_grads": 0, "mix_chain": 0, "op_chain": 0,
+                             "bf16_chain": 0}
 
 
 def reset_launch_counts() -> None:

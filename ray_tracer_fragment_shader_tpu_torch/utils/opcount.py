@@ -17,6 +17,16 @@ in the adjoint.  Bytes count each input that the function needs read once
 nonzero) and each output written once.  The bound is the larger of
 ops / 67 TFLOP/s and bytes / 3.35 TB/s (H100 SXM, FP32 outside the tensor
 cores, at 700 W).
+
+Each work function also returns ``classes``: its operations by class, the
+numerator ``utils/roofline.py`` prices at the rate K9 measures for their
+blend.  ``CLASSES`` splits each per-unit count, hand-counted from the same
+device function: ``basic`` (+ - *), ``div`` (IEEE /, also a reciprocal),
+``sqrt`` and ``rsqrt`` make up the count above (so ``ops`` and the
+data-sheet bound stay as they were); ``cmp`` (float and integer compares,
+a combined ``&&`` of two being one predicate instruction), ``select``,
+``abs`` (``fabsf``) and ``floor`` (``truncf``) are the instructions it
+leaves out.  A branch, a table load and the loop counters are not counted.
 """
 from __future__ import annotations
 
@@ -54,6 +64,61 @@ REV_SPH = 96         # node_reverse, sphere hit
 REV_SNELL = 22       # snell_reverse
 SCATTER = 13         # one hit level's sphere and material sums
 TREE_CHILD = 3       # adjoint_ops.cuh::tree_adjoint, one child's weight
+
+#: each unit's operations by class (see the module docstring); basic, div,
+#: sqrt and rsqrt add up to the unit's count above
+CLASSES = {
+    # tri_hit: the 1/ndv division, 5 compares + the sweep's two gates, the
+    # plane_ok select, fabsf
+    "TRI_TEST": dict(basic=40, div=1, cmp=7, select=1, abs=1),
+    # sph_hit: sqrtf; disc>0, disc>=0, dist>=small + the two gates
+    "SPH_TEST": dict(basic=18, sqrt=1, cmp=5, select=1),
+    "RAY_SETUP": dict(basic=9, rsqrt=1, cmp=1, select=1),
+    # rsqrtf of the normal, three truncf of the checker parity, the
+    # hit/kind/checker selects of the normal and the material
+    "HIT_ATTRS": dict(basic=26, rsqrt=1, cmp=7, select=11, floor=3),
+    "DIRS": dict(basic=14),
+    "SNELL": dict(basic=19, sqrt=1, cmp=1, select=2),
+    # its ray_setup, the attenuation's division, 1/|sv|, two fabsf
+    "SHADE_LIGHT": dict(basic=53, div=1, rsqrt=2, cmp=3, select=4, abs=2),
+    "CHAIN_STEP": dict(basic=11, cmp=3, select=7),
+    "TREE_PUSH": dict(basic=12, cmp=1),
+    "PROLOGUE": dict(basic=15, cmp=3),
+    # safe_sqrt(|v|^2), safe_recip(|v|), the kind compare
+    "PRIMAL": dict(basic=27, sqrt=1, div=1, cmp=3, select=2),
+    "PRIMAL_TRI": dict(basic=12, div=2, cmp=1, select=2, abs=1),
+    "PRIMAL_SPH": dict(basic=27, sqrt=2, div=2, cmp=4, select=3),
+    "PRIMAL_SNELL": dict(basic=17, sqrt=1, div=1, cmp=3, select=3),
+    # inv_sqrt(d2), 1/(atten+d2), two sgn (2 compares and a select each),
+    # the lit bit, two fabsf
+    "REV_LIGHT": dict(basic=121, sqrt=1, div=2, cmp=6, select=3, abs=2),
+    "REV_TAIL": dict(basic=28),
+    "REV_TRI": dict(basic=49, select=1),
+    "REV_SPH": dict(basic=96, select=1),
+    "REV_SNELL": dict(basic=22),
+    # the sums, and the record's sphere and material matches
+    "SCATTER": dict(basic=13, cmp=2),
+    "TREE_CHILD": dict(basic=3, cmp=2, select=6),
+}
+#: the classes that make up a unit's count
+COUNTED = ("basic", "div", "sqrt", "rsqrt")
+
+
+def _price(units: Dict[str, int]) -> Tuple[float, Dict[str, float]]:
+    """(operations, operations by class) of ``units`` {unit name: how many
+    times it runs}."""
+    ops = sum(n * globals()[u] for u, n in units.items())
+    classes: Dict[str, float] = {}
+    for u, n in units.items():
+        for k, c in CLASSES[u].items():
+            classes[k] = classes.get(k, 0.0) + float(n * c)
+    return float(ops), classes
+
+
+def _add(units: Dict[str, int], **counts) -> Dict[str, int]:
+    for u, n in counts.items():
+        units[u] = units.get(u, 0) + int(n)
+    return units
 
 
 def bound_ms(ops: float, nbytes: float) -> Tuple[float, str]:
@@ -109,8 +174,6 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
     n_tri_ok = sum(1 for t in ops.tri if t[19] > 0.5)
     n_sph_ok = sum(1 for s in ops.sph if s[5] > 0.5)
     work = dict(visits=0, hits=0, tri_tests=0, sph_tests=0)
-    per_hit = HIT_ATTRS + DIRS + (SNELL if want_trans else 0) \
-        + nl * SHADE_LIGHT + (TREE_PUSH if tree else CHAIN_STEP)
 
     def visit(o, d, excl, alive, thr, col):
         """One trace_node over the ``alive`` lanes."""
@@ -155,18 +218,24 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
                 if bool(child.any()):
                     node(p, tuple(x * gate for x in dd), bi, child, level + 1)
         node(o, d, ops.full(-1.0), alive, 0)
-    flops = (RAY_SETUP * work["visits"] + TRI_TEST * work["tri_tests"]
-             + SPH_TEST * work["sph_tests"] + per_hit * work["hits"])
+    hits = work["hits"]
+    units = _add({}, RAY_SETUP=work["visits"], TRI_TEST=work["tri_tests"],
+                 SPH_TEST=work["sph_tests"], HIT_ATTRS=hits, DIRS=hits,
+                 SNELL=hits if want_trans else 0, SHADE_LIGHT=nl * hits,
+                 **{"TREE_PUSH" if tree else "CHAIN_STEP": hits})
+    flops, classes = _price(units)
     K = n_tree_nodes(depth) if tree else depth + 1
     nbytes = (P * 24 + (P * 4 * (depth + 1) if packed else 0)
               + (P * 4 * (2 + nl) * K if residuals else 0))
-    return dict(work, ops=float(flops), bytes=float(nbytes))
+    return dict(work, ops=flops, classes=classes, units=units,
+                bytes=float(nbytes))
 
 
 def _chain_adjoint_ops(bi, lit, g_live, *, nt: int, depth: int,
-                       want_trans: bool) -> Tuple[float, torch.Tensor]:
-    """FP32 operations of adjoint_ops.cuh::chain_adjoint over the pixels
-    with a nonzero cotangent (``g_live``), from the residual planes ``bi``
+                       want_trans: bool) -> Tuple[Dict[str, int],
+                                                  torch.Tensor]:
+    """The units of adjoint_ops.cuh::chain_adjoint over the pixels with a
+    nonzero cotangent (``g_live``), from the residual planes ``bi``
     [depth+1, P] and ``lit`` [nl, depth+1, P]: the primal and reverse
     sweeps of each hit level before the first miss, with their lit lights,
     and one add per gradient term.  Also returns ``lead``, the [depth+1, P]
@@ -184,18 +253,17 @@ def _chain_adjoint_ops(bi, lit, g_live, *, nt: int, depth: int,
     # levels with a child (lv < depth) take the Snell record and reverse
     n_snell = (int(fwd.sum()) + int(lead[:depth].sum())) if want_trans else 0
     n_snell_rev = int(lead[:depth].sum()) if want_trans else 0
-    flops = (PRIMAL * (n_tri + n_sph)
-             + PRIMAL_TRI * n_tri + PRIMAL_SPH * n_sph
-             + PRIMAL_SNELL * n_snell + REV_SNELL * n_snell_rev
-             + REV_LIGHT * int(lits.sum()) + REV_TAIL * n_hit
-             + REV_TRI * int((lead & is_tri).sum())
-             + REV_SPH * int((lead & ~is_tri).sum()) + SCATTER * n_hit)
-    return float(flops), lead
+    units = _add({}, PRIMAL=n_tri + n_sph, PRIMAL_TRI=n_tri,
+                 PRIMAL_SPH=n_sph, PRIMAL_SNELL=n_snell,
+                 REV_SNELL=n_snell_rev, REV_LIGHT=int(lits.sum()),
+                 REV_TAIL=n_hit, REV_TRI=int((lead & is_tri).sum()),
+                 REV_SPH=int((lead & ~is_tri).sum()), SCATTER=n_hit)
+    return units, lead
 
 
 def _tree_adjoint_ops(bi, lit, g_live, *, nt: int, depth: int,
-                      want_trans: bool) -> Tuple[float, int]:
-    """FP32 operations of adjoint_ops.cuh::tree_adjoint over the pixels with
+                      want_trans: bool) -> Tuple[Dict[str, int], int]:
+    """The units of adjoint_ops.cuh::tree_adjoint over the pixels with
     a nonzero cotangent, from the residual planes ``bi`` [K, P] and ``lit``
     [nl, K, P] of the K preorder nodes (a node that hits was reached: a
     child whose gate is 0 or whose parent missed holds bi = -1).  Per hit
@@ -213,27 +281,26 @@ def _tree_adjoint_ops(bi, lit, g_live, *, nt: int, depth: int,
     walk(0)
     hit = (bi >= 0.0) & g_live[None, :]
     is_tri = bi < nt
-    flops = 0
+    units: Dict[str, int] = {}
     n_hit = 0
     for k, level in enumerate(levels):
         h = hit[k]
         n, n_t = int(h.sum()), int((h & is_tri[k]).sum())
         n_hit += n
         n_lit = int(((lit[:, k] > 0.5) & h[None]).sum())
-        snell = want_trans and level < depth
-        flops += (n * (PRIMAL + REV_TAIL + SCATTER) + n_t * (PRIMAL_TRI
-                  + REV_TRI) + (n - n_t) * (PRIMAL_SPH + REV_SPH)
-                  + REV_LIGHT * n_lit
-                  + (n * (PRIMAL_SNELL + REV_SNELL) if snell else 0))
+        snell = n if want_trans and level < depth else 0
+        _add(units, PRIMAL=n, REV_TAIL=n, SCATTER=n, PRIMAL_TRI=n_t,
+             REV_TRI=n_t, PRIMAL_SPH=n - n_t, REV_SPH=n - n_t,
+             REV_LIGHT=n_lit, PRIMAL_SNELL=snell, REV_SNELL=snell)
         if level < depth:
             # the children it visits: k+1 (transmitted), k+2^(depth-level)
             for c in (k + 1, k + 2 ** (depth - level)):
                 v = h & hit[c]
                 n_c, n_ct = int(v.sum()), int((v & is_tri[k]).sum())
-                flops += (n_c * (PRIMAL + TREE_CHILD
-                                 + (PRIMAL_SNELL if want_trans else 0))
-                          + n_ct * PRIMAL_TRI + (n_c - n_ct) * PRIMAL_SPH)
-    return float(flops), n_hit
+                _add(units, PRIMAL=n_c, TREE_CHILD=n_c,
+                     PRIMAL_SNELL=n_c if want_trans else 0,
+                     PRIMAL_TRI=n_ct, PRIMAL_SPH=n_c - n_ct)
+    return units, n_hit
 
 
 def adjoint_work(tables, img, target, mask, pk, *, pack, nl: int,
@@ -250,14 +317,15 @@ def adjoint_work(tables, img, target, mask, pk, *, pack, nl: int,
     nt = tables["tri"].shape[0]
     g_live = ((img - target) * mask[:, None] != 0.0).any(-1)
     res = unpack_residuals(pk, nl, pack)
-    flops, lead = _chain_adjoint_ops(res["bi"], res["lit"], g_live, nt=nt,
+    units, lead = _chain_adjoint_ops(res["bi"], res["lit"], g_live, nt=nt,
                                      depth=depth, want_trans=want_trans)
+    flops, classes = _price(_add(units, PROLOGUE=P))
     n_lead = lead.sum(0)
     pk_levels = int(torch.clamp(n_lead + 1, max=depth + 1)[g_live].sum())
     nbytes = (P * (12 + 12 + 4) + 4 * pk_levels
               + 12 * int((n_lead > 0).sum()) + 4 * _ncols(tables, nl))
     return dict(hit_levels=int(lead.sum()), live_pixels=int(g_live.sum()),
-                ops=PROLOGUE * P + flops, bytes=float(nbytes))
+                ops=flops, classes=classes, bytes=float(nbytes))
 
 
 def _ncols(tables, nl: int) -> int:
@@ -289,22 +357,23 @@ def fused_work(tables, v, eye, *, tree: bool, pack, target=None, mask=None,
     else:
         img, pk = render_packed_ref(tables, vf, eye, pack=pack, **kw)
         res = unpack_residuals(pk, nl, pack)
+    units = dict(fwd["units"])
     if g is None:
         live = ((img - target) * mask[:, None] != 0.0).any(-1)
         g_live = live
-        flops = fwd["ops"] + PROLOGUE * P
+        _add(units, PROLOGUE=P)
         nbytes = P * (12 + 12 + 4)
     else:
         g_live = torch.ones(vf.shape[0], dtype=torch.bool, device=v.device)
-        flops = fwd["ops"]
         nbytes = P * 12 + 12 * vf.shape[0]
     count = _tree_adjoint_ops if tree else _chain_adjoint_ops
     adj, hits = count(res["bi"], res["lit"], g_live, nt=nt, depth=depth,
                       want_trans=want_trans)
     if not tree:
         hits = int(hits.sum())
-    return dict(fwd, ops=flops + adj, bytes=float(nbytes
-                                                  + 4 * _ncols(tables, nl)),
+    flops, classes = _price(_add(units, **adj))
+    return dict(fwd, ops=flops, classes=classes, classes_fwd=fwd["classes"],
+                units=units, bytes=float(nbytes + 4 * _ncols(tables, nl)),
                 live_pixels=int(g_live.sum()), adjoint_nodes=hits)
 
 
@@ -321,11 +390,87 @@ def fit_grads_work(tables, g, res, *, nl: int, depth: int,
     P = g.shape[0]
     nt = tables["tri"].shape[0]
     g_live = (g != 0.0).any(-1)
-    flops, lead = _chain_adjoint_ops(res["bi"], res["lit"], g_live, nt=nt,
+    units, lead = _chain_adjoint_ops(res["bi"], res["lit"], g_live, nt=nt,
                                      depth=depth, want_trans=want_trans)
+    flops, classes = _price(units)
     n_lead = lead.sum(0)
     bi_levels = int(torch.clamp(n_lead + 1, max=depth + 1)[g_live].sum())
     nbytes = (12 * P + 4 * bi_levels + 4 * (1 + nl) * int(lead.sum())
               + 12 * int((n_lead > 0).sum()) + 4 * _ncols(tables, nl))
     return dict(hit_levels=int(lead.sum()), live_pixels=int(g_live.sum()),
-                ops=flops, bytes=float(nbytes))
+                ops=flops, classes=classes, bytes=float(nbytes))
+
+
+def step_work(scene, camera, config, target=None, *, mode: str = "twophase",
+              device=None) -> Dict[str, object]:
+    """What one bench step runs on these inputs: the forward render
+    (``target`` None) or the fwd+bwd of ``fit_value_and_grad`` in ``mode``
+    (``"twophase"`` K3 + K4, ``"fused"`` K6, ``"split"`` the residual K2 +
+    K8; a fractional-transparency scene takes K6's tree, as the fit does).
+    ``scene`` is the scene the step renders (``params.into_scene``).
+    Returns ``fwd`` and ``bwd``, the forward's and the backward's
+    operations by class; ``kernels``, the kernels it launches; and
+    ``launch``, a zero-arg callable that launches those kernels once on
+    the same inputs (for their device time)."""
+    from ..kernels import adjoint_fused as AF
+    from ..kernels import render as K
+    from ..ops.rays import primary_rays, screen_points
+    dev = K.resolve_device(device)
+    P = config.width * config.height
+    if target is None:
+        cam = camera.to(dev)
+        _, v = primary_rays(cam, screen_points(cam, config.width,
+                                               config.height))
+        v, eye = v.contiguous(), cam.eye.tolist()
+    else:
+        prep = AF.prepare_fit_inputs(camera, config, target, device=dev)
+        v, eye = prep["v"], prep["eye"]
+    scene_c, t, kw, akw = AF.kernel_inputs(scene, config, P, device=dev)
+    tree = not scene_c.chain_exact
+    if target is None:
+        w = forward_work(t, v, eye, tree=tree, **kw)
+        render = K.render_tree if tree else K.render_chain
+        return dict(fwd=w["classes"], bwd={},
+                    kernels=["render_tree" if tree else "render_chain"],
+                    launch=lambda: render(t, v, eye, **kw))
+    tgt, mask = prep["target"], prep["mask"]
+    if tree:
+        mode = "fused"
+    if mode == "twophase":
+        img, pk = K.render_packed(t, v, eye, pack=akw["pack"], **kw)
+        w3 = forward_work(t, v, eye, packed=True, **kw)
+        w4 = adjoint_work(t, img, tgt, mask, pk, pack=akw["pack"],
+                          nl=akw["nl"], depth=akw["depth"],
+                          want_trans=akw["want_trans"])
+
+        def launch():
+            i, p = K.render_packed(t, v, eye, pack=akw["pack"], **kw)
+            return AF.adjoint_packed(t, v, eye, i, tgt, mask, p, **akw)
+        return dict(fwd=w3["classes"], bwd=w4["classes"],
+                    kernels=["render_packed", "adjoint_packed"],
+                    launch=launch)
+    if mode == "fused":
+        w6 = fused_work(t, v, eye, tree=tree, pack=akw["pack"], target=tgt,
+                        mask=mask, **kw)
+        bwd = {k: c - w6["classes_fwd"].get(k, 0.0)
+               for k, c in w6["classes"].items()}
+        return dict(fwd=w6["classes_fwd"], bwd=bwd,
+                    kernels=["fused_adjoint"],
+                    launch=lambda: AF.fused_adjoint(
+                        t, v, eye, tgt, mask, tree=tree, pack=akw["pack"],
+                        g_scale=akw["g_scale"], **kw))
+    if mode != "split":
+        raise ValueError(f"unknown fit mode {mode!r}")
+    fkw = {k: akw[k] for k in ("nl", "depth", "atten", "want_trans")}
+
+    def split_inputs():
+        img, res = K.render_residuals(t, v, eye, tree=False, **kw)
+        return (akw["g_scale"] * (img - tgt)).contiguous(), res
+    g, res = split_inputs()
+    wf = forward_work(t, v, eye, residuals=True, **kw)
+    w8 = fit_grads_work(t, g, res, nl=akw["nl"], depth=akw["depth"],
+                        want_trans=akw["want_trans"])
+    return dict(fwd=wf["classes"], bwd=w8["classes"],
+                kernels=["render_chain_residuals", "fit_grads"],
+                launch=lambda: AF.fit_grads(t, v, eye, *split_inputs(),
+                                            **fkw))

@@ -404,3 +404,94 @@ def test_split_and_render_image_diff_run_on_the_card_by_default(cuda):
     torch.cuda.synchronize()
     assert img.is_cuda and K.LAUNCHES["render_chain_residuals"] == 2
     assert K.LAUNCHES["render_tree_residuals"] == 1
+
+
+# ---- the probes (K9, P1, P2) ---------------------------------------------
+# held against their plain versions on the same card at two 8x256 tiles:
+# f32 chains to 1e-5 of max|plain| (rsqrtf and rcp.approx.f32 are not
+# IEEE), bf16 chains to 2^-7 (one rounding of rsqrt's result)
+
+PROBE_TOL, PROBE_BF16_TOL = 1e-5, 2.0 ** -7
+RENDER_LIKE = dict(basic=8000.0, select=2000.0, cmp=1200.0, abs=150.0,
+                   rsqrt=300.0, sqrt=60.0, recip_nr=220.0, floor=40.0,
+                   sign=30.0, div=20.0)
+
+
+def _probe_rel(got, ref):
+    scale = ref.abs().max().item()
+    diff = (got - ref).abs().max().item()
+    return diff / scale if scale > 0 else diff
+
+
+@pytest.mark.parametrize("blend", ["render_like", "basic"])
+def test_mix_chain_kernel_matches_plain_and_is_deterministic(cuda, blend):
+    from ray_tracer_fragment_shader_tpu_torch.kernels import probe as PR
+    from ray_tracer_fragment_shader_tpu_torch.utils import roofline as RL
+    counts = RENDER_LIKE if blend == "render_like" else {"basic": 1.0}
+    sched = RL._rewrite_schedule(RL.mix_schedule(counts))[0]
+    x = RL.probe_input(2, cuda)
+    for nc in (2, 16):
+        before = K.LAUNCHES["mix_chain"]
+        a = PR.mix_chain(x, iters=8, nc=nc, sched=sched)
+        b = PR.mix_chain(x, iters=8, nc=nc, sched=sched)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["mix_chain"] == before + 2
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+        ref = RL.mix_chain_ref(x, iters=8, nc=nc, sched=sched)
+        assert _probe_rel(a, ref) <= PROBE_TOL
+
+
+def test_op_and_bf16_chain_kernels_match_plain(cuda):
+    from ray_tracer_fragment_shader_tpu_torch.kernels import probe as PR
+    from ray_tracer_fragment_shader_tpu_torch.utils import roofline as RL
+    x = RL.probe_input(2, cuda)
+    for inj in PR.INJECTS:
+        a = PR.op_chain(x, inject=inj, iters=8, nc=4)
+        assert torch.equal(a, PR.op_chain(x, inject=inj, iters=8, nc=4))
+        ref = PR.op_chain_ref(x, inject=inj, iters=8, nc=4)
+        assert _probe_rel(a, ref) <= PROBE_TOL, inj
+    for inj in PR.BF16_INJECTS:
+        for bf16 in (False, True):
+            a = PR.bf16_chain(x, inject=inj, bf16=bf16, iters=8, nc=4)
+            ref = PR.bf16_chain_ref(x, inject=inj, bf16=bf16, iters=8, nc=4)
+            tol = PROBE_BF16_TOL if bf16 else PROBE_TOL
+            assert _probe_rel(a, ref) <= tol, (inj, bf16)
+
+
+def test_probe_wrappers_refuse_other_devices_and_shapes(cuda):
+    from ray_tracer_fragment_shader_tpu_torch.kernels import probe as PR
+    from ray_tracer_fragment_shader_tpu_torch.utils import roofline as RL
+    x = RL.probe_input(2, cuda)
+    sched = ("basic", "cmp", "select")
+    with pytest.raises(ValueError):
+        PR.mix_chain(x.to("meta"), iters=1, nc=2, sched=sched)
+    with pytest.raises(ValueError):
+        PR.mix_chain(x, iters=1, nc=3, sched=sched)  # not in the library
+    with pytest.raises(ValueError):
+        PR.op_chain(x[:, :128].contiguous(), inject="mul", iters=1, nc=4)
+    with pytest.raises(ValueError):
+        PR.op_chain(x.t(), inject="mul", iters=1, nc=4)
+    with pytest.raises(ValueError):
+        PR.bf16_chain(x, inject="mul", bf16=True, iters=1, nc=5)
+
+
+def test_mix_rate_on_the_card_is_below_the_fp32_ceiling(cuda):
+    from ray_tracer_fragment_shader_tpu_torch.kernels import probe as PR
+    from ray_tracer_fragment_shader_tpu_torch.utils import roofline as RL
+    r = RL.mix_rate_details(RENDER_LIKE, iters=16, reps=3, device=cuda)
+    clock = float(PR.gpu_query("clocks.max.sm").split()[0])
+    ceiling = PR.sm_count() * 128 * clock * 1e6
+    assert 0 < r["rate"] <= 1.05 * ceiling
+    assert r["nc"] in PR.MIX_NCS and r["per_step"] <= 257
+
+
+def test_bench_runs_on_the_card_by_default(cuda, monkeypatch, capsys):
+    from ray_tracer_fragment_shader_tpu_torch import bench
+    for k, v in {"BENCH_SIZE": "128", "BENCH_DEPTH": "2",
+                 "BENCH_ITERS": "4", "BENCH_REPS": "2"}.items():
+        monkeypatch.setenv(k, v)
+    out = bench.main([])
+    assert out["metric"] == "rays_per_s_per_chip_fwd_bwd_128x128_depth2"
+    assert out["device"] == torch.cuda.get_device_name(0)
+    assert 0 < out["vs_baseline"] <= 1.05
+    assert out["mix_rate_ops_per_s"] > 0

@@ -36,7 +36,7 @@ def test_port_imports_no_jax():
 
 def test_kernel_paths_have_no_fallback():
     for name in ("render.py", "cuda_build.py", "adjoint.py",
-                 "adjoint_fused.py"):
+                 "adjoint_fused.py", "probe.py"):
         with open(os.path.join(PORT_DIR, "kernels", name)) as f:
             src = f.read()
         assert not re.search(r"^\s*(try\s*:|except\b)", src, re.M), name
@@ -46,7 +46,8 @@ def test_kernel_sources_are_built_and_report_their_launches():
     from ray_tracer_fragment_shader_tpu_torch.kernels import cuda_build
     csrc = os.path.join(PORT_DIR, "kernels", "csrc")
     names = sorted(os.listdir(csrc))
-    assert set(names) == set(cuda_build.SOURCES), names
+    assert set(names) == (set(cuda_build.SOURCES)
+                          | set(cuda_build.PROBE_SOURCES)), names
     entries = set()
     for name in names:
         with open(os.path.join(csrc, name)) as f:
@@ -61,7 +62,8 @@ def test_kernel_sources_are_built_and_report_their_launches():
             if entry != "rtfs_error_string":
                 assert re.search(r"cudaGetLastError|launch_render|"
                                  r"launch_fused", body), entry
-    assert entries == set(cuda_build._ENTRIES), entries
+    probe_entries = {e for v in cuda_build.PROBE_ENTRIES.values() for e in v}
+    assert entries == set(cuda_build._ENTRIES) | probe_entries, entries
 
 
 def test_chip_smoke_imports_no_jax():
@@ -112,3 +114,37 @@ def test_split_mode_sources_and_entries_are_listed():
     assert "fit_grads.cu" in cuda_build.SOURCES
     assert {"rtfs_render_chain_residuals", "rtfs_render_tree_residuals",
             "rtfs_fit_grads"} <= set(cuda_build._ENTRIES)
+
+
+def test_bench_and_probes_import_no_jax_and_have_no_fallback():
+    """The bench and the probes run on the card's machine, which has no
+    JAX; a failed probe build or launch must fail them, never fall back."""
+    code = (
+        "import sys\n"
+        "import ray_tracer_fragment_shader_tpu_torch.bench\n"
+        "import ray_tracer_fragment_shader_tpu_torch.probes.op_probe\n"
+        "import ray_tracer_fragment_shader_tpu_torch.probes.bf16_probe\n"
+        "import ray_tracer_fragment_shader_tpu_torch.probes.pressure_probe\n"
+        "import ray_tracer_fragment_shader_tpu_torch.probes."
+        "roofline_validate\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ray_tracer_fragment_shader_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+    paths = [os.path.join(PORT_DIR, "bench.py"),
+             os.path.join(PORT_DIR, "utils", "roofline.py")]
+    probes = os.path.join(PORT_DIR, "probes")
+    paths += [os.path.join(probes, n) for n in sorted(os.listdir(probes))
+              if n.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"^\s*(try\s*:|except\b)", src, re.M), path
+    from ray_tracer_fragment_shader_tpu_torch.kernels import cuda_build
+    assert set(cuda_build.PROBE_SOURCES) == set(cuda_build.PROBE_ENTRIES)
+    # built as the kernels they price: no fused multiply-add
+    for name in cuda_build.PROBE_SOURCES:
+        assert cuda_build.SOURCE_FLAGS[name] == ("-fmad=false",), name

@@ -191,7 +191,8 @@ def test_cpu_tensors_never_launch_kernels():
                           "render_packed": 0, "render_chain_residuals": 0,
                           "render_tree_residuals": 0, "adjoint_packed": 0,
                           "fused_adjoint": 0, "recompute_adjoint": 0,
-                          "fit_grads": 0}
+                          "fit_grads": 0, "mix_chain": 0, "op_chain": 0,
+                          "bf16_chain": 0}
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
