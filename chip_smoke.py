@@ -117,9 +117,34 @@ Phases (each raises on failure; the script then exits non-zero):
    versions; and each render and fit kernel's bound at K9's rate for its
    family's blend (``k9_bound_ms`` in the ``kernels`` line, the larger of
    that and its bytes' time).
+14. ``bf16_shading`` and the unpacked K6/K7 (``bf16_phase``): K6/K7's
+   local memory per tree depth cap (ptxas) and what it reserves for the
+   card's resident threads; the toolkit's words on __hmul_rn/__hadd_rn/
+   __hsub_rn and the SASS census of the library's bf16 HFMA2 (none may
+   fuse a multiply and an add); at 128^2 each bf16 kernel (K2, K3, K5,
+   the residual K2/K5, K6 and K7, chain and tree) against its plain
+   version (phase 2's budget, planes equal), K6/K7 twice bit-identical
+   within 1e-3 of max|plain| and K6 against K3+K4 in bf16 (bit-equality
+   printed); K6/K7 in f32 on ``presets.pack_overflow`` (past the 2^24
+   pack) and on a tree at the deepest cap, and the refusal one level
+   deeper; then, each with the launch counters zeroed just before and
+   read just after, the bf16 path at full width: ``render_image_kernel``
+   at config 3 and ``fractional_glass`` 1024^2 d3, ``fit_value_and_grad``
+   in the twophase, fused and split modes at config 3 (each held against
+   K6's plain version), 5 Adam steps of ``make_fit_step_kernel`` with the
+   loss falling, ``render_image_diff`` at config 3 and on the tree, the
+   tree fit, and 2-sample fits at config 3 and on the tree 512^2 (K7,
+   against ``recompute_adjoint_ref`` per sample); every bf16 kernel must
+   have launched.  Then each bf16 kernel's time beside its f32 sibling on
+   the same inputs (plain, f32, bf16, bf16, f32, plain), its bounds (the
+   data sheet's, bf16 operations priced as FP32 ones, and K9's rate for
+   the f32 kernel's blend) and ``bf16_ab.py``
+   (chiprun_out/bf16_shading_ab_h100.json).
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
-(forward kernels) the largest fraction of pixels over 1e-3.
+(forward kernels) the largest fraction of pixels over 1e-3.  The bf16 rows
+(``<kernel>_bf16``) name the f32 kernel's source and TPU kernel, with the
+bf16 branches in ``variant``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -206,6 +231,17 @@ FAMILY = {"render_chain": "chain forward", "render_packed": "chain forward",
           "recompute_adjoint": "fused fwd+bwd"}
 FIELDS = ("sph_center", "sph_radius", "light_pos", "mat_diffuse",
           "mat_specular", "mat_ambient")
+#: phase 14's rows: each kernel's bf16_shading variant (the instantiation of
+#: its source with BF16), counted apart by its wrapper (render.launch_key);
+#: the TPU kernel is the same pallas_call built with bf16_shading=True
+#: (_make_tile_ops's bf16 branches, render_pallas.py:310-371 and :540-555)
+BF16_ROWS = {f"{k}_bf16": k for k in (
+    "render_chain", "render_tree", "render_packed", "render_chain_residuals",
+    "render_tree_residuals", "fused_adjoint", "recompute_adjoint")}
+BF16_CODE = ("ray_tracer_fragment_shader_tpu/kernels/render_pallas.py"
+             ":310-371,540-555")
+#: threads an H100 SM holds, for each of which CUDA reserves local memory
+THREADS_PER_SM = 2048
 
 
 def check(cond, msg):
@@ -267,8 +303,7 @@ def fit_inputs(K, AF, dev, preset, dc=1.5, params=None):
 def fused_args(x):
     """(args, keywords) of fused_adjoint / fused_adjoint_ref on ``x``."""
     return ((x["tables"], x["v"], x["eye"], x["target"], x["mask"]),
-            dict(tree=x["tree"], pack=x["akw"]["pack"],
-                 g_scale=x["akw"]["g_scale"], **x["kw"]))
+            dict(tree=x["tree"], g_scale=x["akw"]["g_scale"], **x["kw"]))
 
 
 def recompute_args(K, x):
@@ -279,7 +314,7 @@ def recompute_args(K, x):
     img = render(x["tables"], x["v"], x["eye"], **x["kw"])
     g = (x["akw"]["g_scale"] * (img - x["target"])).contiguous()
     return ((x["tables"], x["v"], x["eye"], g),
-            dict(tree=x["tree"], pack=x["akw"]["pack"], **x["kw"]))
+            dict(tree=x["tree"], **x["kw"]))
 
 
 def hold_grads(kname, label, got, ref, against="plain"):
@@ -356,8 +391,7 @@ def sampled_plain(AF, K, dev, preset, params, jitter):
     sums = None
     for v, g in zip(fw["rays"], fw["cots"]):
         t = AF.recompute_adjoint_ref(fw["tables"], v, fw["eye"], g,
-                                     tree=fw["tree"], pack=fw["pack"],
-                                     **fw["kw"])
+                                     tree=fw["tree"], **fw["kw"])
         sums = t if sums is None else tuple(a + b for a, b in zip(sums, t))
     grads = AF.grads_to_fitparams(params, scene,
                                   AF._grads_c(fw["scene_c"], *sums))
@@ -382,6 +416,505 @@ def hold_probe(kname, label, got, ref, tol):
     check(bool(torch.isfinite(got).all()) and rel <= tol,
           f"{kname} disagrees with its plain version on {label}")
     return (got - ref).abs().max().item()
+
+
+def fused_stack_frames(log: str):
+    """{(tree, bf16, cap): stack-frame bytes} of the K6/K7 instantiations
+    (csrc/adjoint_fused.cu's fused_adjoint_kernel<TREE, EXTERNAL_G,
+    WANT_TRANS, BF16, TREE_CAP>) in a ptxas -v log."""
+    import re
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*fused_adjoint_kernelILb(\d)"
+                      r"ELb\dELb\dELb(\d)ELi(\d+)E", line)
+        if m:
+            key = (bool(int(m.group(1))), bool(int(m.group(2))),
+                   int(m.group(3)))
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and key is not None:
+            out[key] = max(out.get(key, 0), int(m.group(1)))
+            key = None
+    return out
+
+
+def bf16_fma_census(library: str):
+    """{"mul", "add", "fused"}: the bfloat16 HFMA2 instructions in the
+    SASS of ``library`` (cuobjdump -sass) that multiply (addend -RZ), add
+    (multiplier 1, 1) or fuse a multiply and an add.  The bf16 forms use
+    only __hmul_rn/__hadd_rn/__hsub_rn, each rounded alone; nvcc emits some
+    of them as HFMA2 with a unit multiplier or a zero addend, which rounds
+    once as the operation does.  A fused one would round a product and a
+    sum once together, as JAX's per-op bf16 does not."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    res = subprocess.run([os.path.join(CUDA_HOME or "", "bin", "cuobjdump"),
+                          "-sass", library], capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[:2000]}")
+    out = {"mul": 0, "add": 0, "fused": 0, "fused_lines": []}
+    for line in res.stdout.splitlines():
+        m = re.search(r"HFMA2[.A-Z0-9_]*BF16[.A-Z0-9_]*\s+([^;]*);", line)
+        if not m:
+            continue
+        ops = [o.strip().split(".")[0] for o in m.group(1).split(",")]
+        if ops[-1] in ("-RZ", "RZ"):
+            out["mul"] += 1
+        elif len(ops) == 5 and ops[2] == "1" and ops[3] == "1":
+            out["add"] += 1
+        else:
+            out["fused"] += 1
+            out["fused_lines"] = (out["fused_lines"] + [line.strip()])[:5]
+    return out
+
+
+def bf16_rn_docs():
+    """{intrinsic: the sentence of the toolkit's cuda_bf16.h that documents
+    its rounding} for the __hmul_rn/__hadd_rn/__hsub_rn the bf16 forms
+    use."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    with open(os.path.join(CUDA_HOME or "", "include", "cuda_bf16.h")) as f:
+        src = f.read()
+    out = {}
+    for name in ("__hmul_rn", "__hadd_rn", "__hsub_rn"):
+        i = src.find(f"{name}(const __nv_bfloat16 ")
+        block = src[max(i - 1500, 0):i] if i >= 0 else ""
+        m = re.findall(r"[^.*]*contraction[^.]*\.", block)
+        out[name] = " ".join(m[-1].split()) if m else "not documented"
+    return out
+
+
+def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
+    """Phase 14: the bf16_shading variants and the unpacked K6/K7.  Fills
+    ``launches``, ``errs``, ``fracs``, ``times``, ``bounds`` and ``k9`` for
+    the BF16_ROWS."""
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch import bf16_ab
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import (
+        FitParams, make_fit_step_kernel)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import cuda_build
+    from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
+    from ray_tracer_fragment_shader_tpu_torch.kernels.adjoint import (
+        l2_loss_kernel)
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import (
+        Camera, primary_rays, sample_jitter, screen_points)
+    from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    from ray_tracer_fragment_shader_tpu_torch.utils import opcount
+    from ray_tracer_fragment_shader_tpu_torch.utils import roofline as RL
+    from ray_tracer_fragment_shader_tpu_torch.utils.timing import time_ms
+    t14 = time.perf_counter()
+    n = 128
+
+    def bf(preset):
+        scene, cam, cfg = preset
+        return scene, cam, dataclasses.replace(cfg, bf16_shading=True)
+
+    for k in BF16_ROWS:
+        errs[k] = []
+    fracs.update({k: [] for k in BF16_ROWS if "adjoint" not in k})
+
+    # -- the build: K6/K7's local memory at each depth cap, no fused bf16
+    frames = fused_stack_frames(cuda_build.build_info.get("log", ""))
+    props = torch.cuda.get_device_properties(dev)
+    resident = props.multi_processor_count * THREADS_PER_SM
+    for (tree, bf16, cap), b in sorted(frames.items()):
+        print(f"ptxas fused_adjoint_kernel tree={tree} bf16={bf16}"
+              + (f" cap={cap}" if tree else "") + f": {b} B stack frame "
+              f"a thread = {b * resident / 2**30:.3f} GiB reserved for "
+              f"{resident} resident threads [{card}]")
+    if frames:
+        caps = sorted({c for (t, _, c) in frames if t})
+        check(caps == list(AF.TREE_ADJOINT_DEPTH_CAPS),
+              f"tree caps built {caps}, the wrapper's "
+              f"{AF.TREE_ADJOINT_DEPTH_CAPS}")
+    for name, doc in bf16_rn_docs().items():
+        print(f"cuda_bf16.h {name}: {doc}")
+    census = bf16_fma_census(cuda_build.build_info["path"])
+    print(f"SASS bf16 HFMA2 of the kernel library: {census} (fused must be "
+          f"0)")
+    check(census["fused"] == 0, "a bf16 multiply and add were fused")
+
+    # -- each bf16 kernel against its plain version at 128^2
+    def hold_img(kname, label, img, ref, budget=0.01):
+        r = compare(img, ref.reshape(img.shape), budget)
+        errs[kname].append(r["max_abs_err"])
+        fracs[kname].append(r["frac"])
+        print(f"check {kname:28s} {label:30s}: {r['frac']:.5f} of pixels > "
+              f"{FRAC_TOL} (budget {budget}), max abs err "
+              f"{r['max_abs_err']:.4g}, mean {r['mean']:.6f} vs plain "
+              f"{r['plain_mean']:.6f}")
+        check(r["ok"], f"{kname} disagrees with its plain version on "
+                       f"{label}")
+
+    def rays(preset):
+        scene, cam, cfg = preset
+        camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+        _, v = primary_rays(camera, screen_points(camera, cfg.width,
+                                                  cfg.height))
+        return (K.pack_scene(scene.to(dev)), v.contiguous(),
+                camera.eye.tolist(), K.render_kwargs(scene, cfg))
+
+    def hold_residuals(label, t, v, eye, kw, tree):
+        kname = ("render_tree_residuals_bf16" if tree
+                 else "render_chain_residuals_bf16")
+        img, res = K.render_residuals(t, v, eye, tree=tree, **kw)
+        img_ref, res_ref = K.render_residuals_ref(t, v, eye, tree=tree, **kw)
+        hold_img(kname, label, img, img_ref)
+        diff = {k: (res[k] != res_ref[k]).float().mean().item() for k in res}
+        print(f"check {kname} {label}: planes differing from the plain "
+              f"version's {diff} (must be 0)")
+        check(all(d == 0.0 for d in diff.values()),
+              f"{kname} planes differ on {label}")
+
+    chain_cases = [
+        ("full_reflective d3", lambda s: presets.full_reflective(size=s,
+                                                                 depth=3)),
+        ("procedural_spheres n64 d3",
+         lambda s: presets.procedural_spheres(n=64, size=s, depth=3)),
+        ("glass_chain d3", lambda s: presets.glass_chain(size=s, depth=3))]
+    tree_case = ("fractional_glass d3 (tree)",
+                 lambda s: presets.fractional_glass(size=s, depth=3))
+    for label, make in chain_cases + [tree_case]:
+        preset = bf(make(n))
+        t, v, eye, kw = rays(preset)
+        tree = not preset[0].chain_exact
+        if not tree:
+            img = K.render_chain(t, v, eye, **kw)
+            hold_img("render_chain_bf16", label, img,
+                     K.render_chain_ref(t, v, eye, **kw))
+            f32 = K.render_chain(t, v, eye, **dict(kw, bf16=False))
+            print(f"check render_chain_bf16 {label}: "
+                  f"{compare(img, f32, 1.0)['frac']:.5f} of pixels > "
+                  f"{FRAC_TOL} from the f32 kernel's image")
+            pack = AF.kernel_inputs(preset[0], preset[2], n * n,
+                                    device=dev)[3]["pack"]
+            img, pk = K.render_packed(t, v, eye, pack=pack, **kw)
+            img_ref, pk_ref = K.render_packed_ref(t, v, eye, pack=pack, **kw)
+            hold_img("render_packed_bf16", label, img, img_ref)
+            pk_frac = (pk != pk_ref).float().mean().item()
+            print(f"check render_packed_bf16 {label}: {pk_frac:.5f} of packed"
+                  f" residuals differ (budget 0.01)")
+            check(pk_frac <= 0.01, f"render_packed_bf16 residuals, {label}")
+        hold_img("render_tree_bf16", label, K.render_tree(t, v, eye, **kw),
+                 K.render_tree_ref(t, v, eye, **kw))
+        hold_residuals(label, t, v, eye, kw, tree)
+        # K6 and K7 in bf16: twice bit-identical, against the plain version
+        # and (chain) against K3+K4 in bf16
+        x = fit_inputs(K, AF, dev, bf(make(n)))
+        args, kw6 = fused_args(x)
+        a = twice(lambda: AF.fused_adjoint(*args, **kw6),
+                  "fused_adjoint_bf16", label)
+        errs["fused_adjoint_bf16"].append(hold_grads(
+            "fused_adjoint_bf16", label, a,
+            AF.fused_adjoint_ref(*args, **kw6)))
+        if not tree:
+            q = AF.adjoint_packed(x["tables"], x["v"], x["eye"], x["img"],
+                                  x["target"], x["mask"], x["pk"],
+                                  **x["akw"])
+            same = all(torch.equal(p, r) for p, r in zip(a, q))
+            print(f"check fused_adjoint_bf16 {label}: equals K3+K4 in bf16 "
+                  f"bit for bit: {same}")
+            hold_grads("fused_adjoint_bf16", label, a, q, against="K3+K4")
+        args7, kw7 = recompute_args(K, x)
+        b = twice(lambda: AF.recompute_adjoint(*args7, **kw7),
+                  "recompute_adjoint_bf16", label)
+        errs["recompute_adjoint_bf16"].append(hold_grads(
+            "recompute_adjoint_bf16", label, b,
+            AF.recompute_adjoint_ref(*args7, **kw7)))
+        del x, a, b, args, args7
+    torch.cuda.empty_cache()
+
+    # -- A1: K6/K7 past the pack and at the deeper tree cap, 128^2
+    deep = AF.TREE_ADJOINT_MAX_DEPTH
+    for label, preset in (
+            ("pack_overflow fractional, 66 prims 15 lights",
+             presets.pack_overflow(n)),
+            (f"fractional_glass d{deep}",
+             presets.fractional_glass(size=n, depth=deep)),
+            (f"fractional_glass d{deep} bf16",
+             bf(presets.fractional_glass(size=n, depth=deep)))):
+        sc = K.compact_scene(preset[0])
+        counts = (K.pack_scene(sc)["tri"].shape[0], sc.num_spheres,
+                  sc.num_materials, sc.num_lights)
+        x = fit_inputs(K, AF, dev, preset)
+        args, kw6 = fused_args(x)
+        a = twice(lambda: AF.fused_adjoint(*args, **kw6), "fused_adjoint",
+                  label)
+        hold_grads("fused_adjoint", f"{label} (A1)", a,
+                   AF.fused_adjoint_ref(*args, **kw6))
+        args7, kw7 = recompute_args(K, x)
+        b = twice(lambda: AF.recompute_adjoint(*args7, **kw7),
+                  "recompute_adjoint", label)
+        hold_grads("recompute_adjoint", f"{label} (A1)", b,
+                   AF.recompute_adjoint_ref(*args7, **kw7))
+        print(f"A1 {label}: tree {x['tree']}, depth {x['kw']['depth']}, "
+              f"pack fits: {K.pack_fits(*counts)}")
+        del x, a, b, args, args7
+    args, kw6 = fused_args(fit_inputs(
+        K, AF, dev, presets.fractional_glass(size=16, depth=deep + 1)))
+    try:
+        AF.fused_adjoint(*args, **kw6)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"A1 depth {deep + 1}: {refused}")
+    check("B of local memory" in refused, f"depth {deep + 1} not refused")
+    torch.cuda.empty_cache()
+
+    # -- the path at full width, each with the counters zeroed just before
+    bf16_launches = {k: 0 for k in BF16_ROWS}
+    bf16_launches.update(adjoint_packed=0, fit_grads=0)
+
+    def drive(label, fn, want, absent=()):
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        print(f"path bf16 {label}: launches "
+              f"{ {k: c for k, c in counts.items() if c} }")
+        for k in want:
+            check(counts[k] > 0, f"bf16 {label}: never launched {k}")
+        for k in absent:
+            check(counts[k] == 0, f"bf16 {label}: launched {k}")
+        for k in bf16_launches:
+            bf16_launches[k] += counts[k]
+        return out, counts
+
+    fr3 = bf(presets.full_reflective(size=1024, depth=3))
+    fg3 = bf(presets.fractional_glass(size=1024, depth=3))
+    f32_kernels = [k for k in BF16_ROWS.values()]
+    for label, preset, kname in (
+            ("serve config 3 1024^2 d3", fr3, "render_chain_bf16"),
+            ("serve fractional_glass 1024^2 d3", fg3, "render_tree_bf16")):
+        scene, cam, cfg = preset
+        camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+        img, _ = drive(label, lambda: K.render_image_kernel(
+            scene, camera, cfg, device=dev), [kname], f32_kernels)
+        t, v, eye, kw = rays(preset)
+        plain = K.render_tree_ref if "tree" in kname else K.render_chain_ref
+        hold_img(kname, label + " (path)", img, plain(t, v, eye, **kw))
+        del img, t, v
+    x = fit_inputs(K, AF, dev, fr3)
+    params = x["params"].to(dev)
+    args, kw6 = fused_args(x)
+    ref6 = AF.fused_adjoint_ref(*args, **kw6)
+    P3 = x["v"].shape[0]
+    ref_loss, ref = ref6[0] / (P3 * 3), as_fields(AF, x, ref6[1:])
+    for mode, want in (("twophase", ["render_packed_bf16", "adjoint_packed"]),
+                       ("fused", ["fused_adjoint_bf16"]),
+                       ("split", ["render_chain_residuals_bf16",
+                                  "fit_grads"])):
+        (loss, grads), _ = drive(
+            f"fit_value_and_grad {mode} config 3 1024^2 d3",
+            lambda: AF.fit_value_and_grad(params, x["scene"], x["camera"],
+                                          x["cfg"], x["target"], mode=mode,
+                                          device=dev), want, f32_kernels)
+        err = hold_fields(want[0], f"bf16 {mode} config 3 1024^2 d3 (path)",
+                          loss, grads, ref_loss, ref, against="K6 plain")
+        if mode == "fused":
+            errs["fused_adjoint_bf16"].append(err)
+    loss_f32, g_f32 = AF.fit_value_and_grad(
+        params, x["scene"], x["camera"],
+        dataclasses.replace(x["cfg"], bf16_shading=False), x["target"],
+        device=dev)
+    rel = {f: rel_err(ref[f], g_f32[f]) for f in FIELDS}
+    print(f"path bf16 config 3: loss {float(ref_loss):.7g} vs the f32 "
+          f"path's {float(loss_f32):.7g}; gradients' max|bf16 - f32| / "
+          f"max|f32| " + " ".join(f"{f} {e:.3e}" for f, e in rel.items()))
+    check(float(ref_loss) != float(loss_f32), "bf16 path returned f32")
+
+    # make_fit_step_kernel: 5 Adam steps from sphere centres + 1.5
+    step_params = FitParams.from_scene(fr3[0]).to(dev)
+    step_params.load_state_dict(x["params"].state_dict())
+    step = make_fit_step_kernel(x["scene"], x["camera"], x["cfg"],
+                                x["target"], torch.optim.Adam(
+                                    [step_params.sph_center], lr=0.3),
+                                device=dev)
+    steps, _ = drive("make_fit_step_kernel 5 Adam steps config 3",
+                     lambda: [float(step(step_params)) for _ in range(5)],
+                     ["render_packed_bf16", "adjoint_packed"], f32_kernels)
+    print(f"path bf16 make_fit_step_kernel config 3: loss "
+          f"{' -> '.join(f'{v:.6g}' for v in steps)}")
+    check(steps[-1] < steps[0] and all(map(math.isfinite, steps)),
+          "bf16 fit step: the loss did not fall")
+
+    # render_image_diff through l2_loss_kernel, against K6's tables
+    pd = FitParams.from_scene(fr3[0]).to(dev)
+    pd.load_state_dict(x["params"].state_dict())
+
+    def diff_step():
+        """l2_loss_kernel's fwd+bwd on ``pd`` and ``x``."""
+        loss = l2_loss_kernel(pd, x["scene"], x["camera"], x["cfg"],
+                              x["target"], device=dev)
+        loss.backward()
+        return loss.detach()
+    loss_d, _ = drive("render_image_diff config 3 1024^2 d3", diff_step,
+                      ["render_chain_residuals_bf16"], f32_kernels)
+    hold_fields("render_chain_residuals_bf16",
+                "render_image_diff config 3 (path)", loss_d,
+                {f: getattr(pd, f).grad for f in FIELDS}, ref_loss, ref,
+                against="K6 plain")
+    del x, params, step_params, pd, args, ref6, ref
+    torch.cuda.empty_cache()
+
+    # the tree: K6's fit, render_image_diff, and the 2-sample fits (K7)
+    x = fit_inputs(K, AF, dev, fg3)
+    params = x["params"].to(dev)
+    args, kw6 = fused_args(x)
+    ref6 = AF.fused_adjoint_ref(*args, **kw6)
+    Pt = x["v"].shape[0]
+    ref_loss, ref = ref6[0] / (Pt * 3), as_fields(AF, x, ref6[1:])
+    (loss, grads), _ = drive(
+        "tree fit fractional_glass 1024^2 d3",
+        lambda: AF.fit_value_and_grad(params, x["scene"], x["camera"],
+                                      x["cfg"], x["target"], device=dev),
+        ["fused_adjoint_bf16"], f32_kernels)
+    errs["fused_adjoint_bf16"].append(hold_fields(
+        "fused_adjoint_bf16", "tree fractional_glass 1024^2 d3 (path)", loss,
+        grads, ref_loss, ref))
+    pd = FitParams.from_scene(fg3[0]).to(dev)
+    pd.load_state_dict(x["params"].state_dict())
+    loss_d, _ = drive("render_image_diff fractional_glass 1024^2 d3",
+                      diff_step, ["render_tree_residuals_bf16"], f32_kernels)
+    hold_fields("render_tree_residuals_bf16", "render_image_diff tree (path)",
+                loss_d, {f: getattr(pd, f).grad for f in FIELDS}, ref_loss,
+                ref, against="K6 plain")
+    del x, params, pd, args, ref6, ref
+    torch.cuda.empty_cache()
+    for label, preset, render_k in (
+            ("2 spp config 3 1024^2 d3", fr3, "render_chain_bf16"),
+            ("2 spp fractional_glass 512^2 d3",
+             bf(presets.fractional_glass(size=512, depth=3)),
+             "render_tree_bf16")):
+        scene, cam, cfg = preset
+        cfg = dataclasses.replace(cfg, samples=2)
+        camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+        P = cfg.width * cfg.height
+        gen = torch.Generator(dev).manual_seed(cfg.seed)
+        jit = torch.stack([sample_jitter(gen, P, cfg.jitter_scale).to(dev)
+                           for _ in range(2)])
+        target = K.render_image_kernel(scene, camera, cfg, jitter=jit,
+                                       device=dev)
+        start = FitParams.from_scene(scene)
+        with torch.no_grad():
+            start.sph_center += 1.5
+        params = FitParams.from_scene(scene).to(dev)
+        params.load_state_dict(start.state_dict())
+        (loss, grads), _ = drive(
+            label, lambda: AF.fit_value_and_grad(
+                params, scene, camera, cfg, target, jitter=jit, device=dev),
+            [render_k, "recompute_adjoint_bf16"], f32_kernels)
+        ref_loss, ref, _ = sampled_plain(AF, K, dev, (scene, cam, cfg),
+                                         start, jit)
+        errs["recompute_adjoint_bf16"].append(hold_fields(
+            "recompute_adjoint_bf16", f"{label} (path)", loss, grads,
+            ref_loss, ref))
+        del params, grads, ref, jit, target
+        torch.cuda.empty_cache()
+    print(f"bf16 path launched {bf16_launches}")
+    for k, c in bf16_launches.items():
+        check(c > 0, f"the bf16 path never launched {k}")
+    launches.update({k: bf16_launches[k] for k in BF16_ROWS})
+
+    # -- times at full width, with bounds: data sheet and K9's rate for the
+    # f32 kernel's blend (bf16 priced as f32: P2 found it no faster)
+    def four_times(pk_fn, pp_fn, reps_k, reps_p):
+        t_p1 = time_ms(pp_fn, reps_p)
+        t_k1, t_k2 = time_ms(pk_fn, reps_k), time_ms(pk_fn, reps_k)
+        t_p2 = time_ms(pp_fn, reps_p)
+        return (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+
+    x = fit_inputs(K, AF, dev, fr3)
+    t, v, eye, kw, akw = x["tables"], x["v"], x["eye"], x["kw"], x["akw"]
+    xt = fit_inputs(K, AF, dev, fg3)
+    tt, vt, eyet, kwt = xt["tables"], xt["v"], xt["eye"], xt["kw"]
+    args, kw6 = fused_args(x)
+    args7, kw7 = recompute_args(K, x)
+
+    def launchers(on):
+        """Each row's kernel on its timed inputs, in bf16 (``on``) or its
+        f32 sibling on the same inputs."""
+        c, ct = dict(kw, bf16=on), dict(kwt, bf16=on)
+        c6, c7 = dict(kw6, bf16=on), dict(kw7, bf16=on)
+        return {
+            "render_chain_bf16": lambda: K.render_chain(t, v, eye, **c),
+            "render_packed_bf16": lambda: K.render_packed(
+                t, v, eye, pack=akw["pack"], **c),
+            "render_chain_residuals_bf16": lambda: K.render_residuals(
+                t, v, eye, tree=False, **c),
+            "render_tree_bf16": lambda: K.render_tree(tt, vt, eyet, **ct),
+            "render_tree_residuals_bf16": lambda: K.render_residuals(
+                tt, vt, eyet, tree=True, **ct),
+            "fused_adjoint_bf16": lambda: AF.fused_adjoint(*args, **c6),
+            "recompute_adjoint_bf16": lambda: AF.recompute_adjoint(*args7,
+                                                                   **c7)}
+    timed = {
+        "render_chain_bf16": (
+            lambda: K.render_chain_ref(t, v, eye, **kw),
+            lambda: opcount.forward_work(t, v, eye, **kw)),
+        "render_packed_bf16": (
+            lambda: K.render_packed_ref(t, v, eye, pack=akw["pack"], **kw),
+            lambda: opcount.forward_work(t, v, eye, packed=True, **kw)),
+        "render_chain_residuals_bf16": (
+            lambda: K.render_residuals_ref(t, v, eye, tree=False, **kw),
+            lambda: opcount.forward_work(t, v, eye, residuals=True, **kw)),
+        "render_tree_bf16": (
+            lambda: K.render_tree_ref(tt, vt, eyet, **kwt),
+            lambda: opcount.forward_work(tt, vt, eyet, tree=True, **kwt)),
+        "render_tree_residuals_bf16": (
+            lambda: K.render_residuals_ref(tt, vt, eyet, tree=True, **kwt),
+            lambda: opcount.forward_work(tt, vt, eyet, tree=True,
+                                         residuals=True, **kwt)),
+        "fused_adjoint_bf16": (
+            lambda: AF.fused_adjoint_ref(*args, **kw6),
+            lambda: opcount.fused_work(t, v, eye, tree=False,
+                                       target=x["target"], mask=x["mask"],
+                                       **kw)),
+        "recompute_adjoint_bf16": (
+            lambda: AF.recompute_adjoint_ref(*args7, **kw7),
+            lambda: opcount.fused_work(t, v, eye, tree=False, g=args7[3],
+                                       **kw)),
+    }
+    kerns, kerns32 = launchers(True), launchers(False)
+    for kname, (plain, work_fn) in timed.items():
+        # plain, f32, bf16, bf16, f32, plain
+        tp1 = time_ms(plain, 1)
+        t32 = [time_ms(kerns32[kname], 20)]
+        tk = [time_ms(kerns[kname], 20), time_ms(kerns[kname], 20)]
+        t32.append(time_ms(kerns32[kname], 20))
+        tp = (tp1 + time_ms(plain, 1)) / 2
+        tk, t32 = sum(tk) / 2, sum(t32) / 2
+        w = work_fn()
+        b = opcount.bound_ms(w["ops"], w["bytes"])
+        f32 = BF16_ROWS[kname]
+        rate = k9[f32]["k9_rate_ops_per_s"]
+        t_ops = RL.flat_slots(w["classes"]) / rate * 1e3
+        t_bytes = w["bytes"] / opcount.PEAK_BYTES_PER_S * 1e3
+        times[kname], bounds[kname] = (tk, tp), b
+        k9[kname] = dict(k9_bound_ms=max(t_ops, t_bytes),
+                         k9_bound_by="operations" if t_ops >= t_bytes
+                         else "bytes", k9_rate_ops_per_s=rate,
+                         f32_kernel_ms_same_inputs=t32)
+        label = ("fractional_glass 1024^2 d3" if "tree" in kname
+                 else "config 3 1024^2 d3")
+        print(f"time {kname:28s} {label}: kernel {tk:.4f} ms; its f32 "
+              f"kernel on the same inputs {t32:.4f} ms (bf16/f32 "
+              f"{tk / t32:.4f}); plain {tp:.2f} ms; bound {b[0]:.5f} ms "
+              f"({b[1]}: {w['ops']:.4g} ops of which {w['bf16_ops']:.4g} "
+              f"bf16 and {w['cvt_ops']:.4g} conversions, {w['bytes']:.4g} "
+              f"B); at K9's {FAMILY[f32]} rate {rate / 1e12:.4f} T: "
+              f"{k9[kname]['k9_bound_ms']:.5f} ms ({k9[kname]['k9_bound_by']}"
+              f") [{card}]")
+    del x, xt, args, args7, timed
+    torch.cuda.empty_cache()
+
+    # -- bf16_ab.py: fwd and fwd+bwd, f32 against bf16
+    check(bf16_ab.main(["--out", os.path.join(REPO, bf16_ab.OUT)]) == 0,
+          "bf16_ab failed")
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s")
 
 
 def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
@@ -1165,8 +1698,8 @@ def main():
             tk, tp = time_ms(lambda: AF.fused_adjoint(*args, **kw6), 20), None
             plain_txt = "plain not timed (K3+K4's plain K4 is timed); "
         w6 = opcount.fused_work(x["tables"], x["v"], x["eye"], tree=x["tree"],
-                                pack=x["akw"]["pack"], target=x["target"],
-                                mask=x["mask"], **x["kw"])
+                                target=x["target"], mask=x["mask"],
+                                **x["kw"])
         b6 = opcount.bound_ms(w6["ops"], w6["bytes"])
         print(f"time fused_adjoint   {label}: kernel {tk:.4f} ms; "
               f"{plain_txt}bound {b6[0]:.5f} ms ({b6[1]}: "
@@ -1215,7 +1748,7 @@ def main():
                                lambda: AF.recompute_adjoint_ref(*args7, **kw7),
                                20, 1)
         w7 = opcount.fused_work(x["tables"], x["v"], x["eye"], tree=x["tree"],
-                                pack=x["akw"]["pack"], g=args7[3], **x["kw"])
+                                g=args7[3], **x["kw"])
         b7 = opcount.bound_ms(w7["ops"], w7["bytes"])
         print(f"time recompute_adjoint {label}: kernel {tk:.4f} ms "
               f"({r[0]:.4f}, {r[1]:.4f}); plain {tp:.2f} ms ({r[2]:.2f}, "
@@ -1511,17 +2044,23 @@ def main():
     # ---- 13. the probes, the bench, and bounds at K9's rates -----------
     k9 = probe_phase(dev, card, works, launches, errs, times, bounds)
 
+    # ---- 14. bf16_shading and the unpacked K6/K7 -------------------------
+    bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9)
+
     kernels = []
-    for k in KERNEL_SOURCES:
+    for k in list(KERNEL_SOURCES) + list(BF16_ROWS):
+        source, replaces = KERNEL_SOURCES[BF16_ROWS.get(k, k)]
         kernels.append(dict(
-            name=k, route="cuda", source=KERNEL_SOURCES[k][0],
-            replaces=KERNEL_SOURCES[k][1], launches=launches[k],
+            name=k, route="cuda", source=source,
+            replaces=replaces, launches=launches[k],
             max_abs_err=max(errs[k]), ms=times[k][0], plain_ms=times[k][1],
             bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=None))
         if k in fracs:
             kernels[-1]["max_mismatch_frac"] = max(fracs[k])
         if k in k9:
             kernels[-1].update(k9[k])
+        if k in BF16_ROWS:
+            kernels[-1]["variant"] = f"bf16_shading ({BF16_CODE})"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,7 +94,9 @@ def make_fit_step_kernel(scene: FlatScene, camera: Camera,
     plain versions).  ``params`` must live on that device and be what
     ``optimizer`` updates (JAX: diff/fit.py::make_fit_step_pallas).
     Chain scenes step through K3 + K4, fractional-transparency scenes
-    through K6's tree form.  As in the JAX package, the prepared inputs
+    through K6's tree form; under ``config.bf16_shading`` their forwards
+    are the bf16 ones and the adjoints replay in f32 on the topology those
+    recorded.  As in the JAX package, the prepared inputs
     serve single-sample configs only: with a supersampled or jittered
     config the step raises ``ValueError`` (ROADMAP.md queue 3); such fits
     go through ``fit_value_and_grad``."""

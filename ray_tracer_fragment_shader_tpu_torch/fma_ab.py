@@ -77,8 +77,7 @@ def _parity(make, dev):
     img, pk = K.render_packed(t, v, eye, pack=akw["pack"], **kw)
     ref_img, ref_pk = K.render_packed_ref(t, v, eye, pack=akw["pack"], **kw)
     k6 = AF.fused_adjoint(t, v, eye, prep["target"], prep["mask"],
-                          tree=False, pack=akw["pack"],
-                          g_scale=akw["g_scale"], **kw)
+                          tree=False, g_scale=akw["g_scale"], **kw)
     k34 = AF.adjoint_packed(t, v, eye, img, prep["target"], prep["mask"], pk,
                             **akw)
     return dict(

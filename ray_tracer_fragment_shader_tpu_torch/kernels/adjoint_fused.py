@@ -9,12 +9,13 @@ Four kernels, each behind a wrapper that counts its launches
   the L2 cotangent and the squared-error sum in its prologue, unpacks the
   residuals and runs the hand-written replay adjoint of the chain.
 * ``fused_adjoint`` (K6, csrc/adjoint_fused.cu): forward, L2 cotangent and
-  loss, and adjoint in one dispatch, the residuals kept in each thread; on
-  the bounce chain or, for fractional-transparency scenes, the full tree.
-  ``mode="fused"``, and the only fit path of tree scenes.
+  loss, and adjoint in one dispatch, the residuals kept unpacked in each
+  thread (no pack, so no 2^24 limit); on the bounce chain or, for
+  fractional-transparency scenes, the full tree.  ``mode="fused"``, and
+  the only fit path of tree scenes.
 * ``recompute_adjoint`` (K7, the same source): the forward re-traced and
   the adjoint run under a cotangent given from outside; the per-sample
-  backward of supersampled and adaptive fits.
+  backward of supersampled and adaptive fits.  No pack either.
 * ``fit_grads`` (K8, csrc/fit_grads.cu): the chain adjoint from the
   unpacked residual planes of ``render.render_residuals`` under a
   cotangent given from outside; ``mode="split"``, and the only fit path of
@@ -23,6 +24,12 @@ Four kernels, each behind a wrapper that counts its launches
 One thread runs one pixel.  Each block writes one row of per-entity
 partial sums, and a second kernel adds the rows in a fixed order, so two
 launches give bit-identical tables.
+
+Under ``RenderConfig.bf16_shading`` (``render_kwargs``'s ``bf16``) the
+forwards of K3, K6 and K7 run in their bf16 form, and K4, K8 and the
+adjoint halves of K6/K7 replay in f32 on the topology that forward
+recorded, as the JAX package does; the loss and cotangent are the bf16
+image's.
 
 The plain versions (``adjoint_packed_ref``, ``fused_adjoint_ref``,
 ``recompute_adjoint_ref``, ``fit_grads_ref``) differentiate the replays of
@@ -44,11 +51,11 @@ from ..ops.rays import Camera, primary_rays, screen_points
 from ..scene.flat import FlatScene
 from .adjoint import replay_chain, replay_tree
 from .render import (LAUNCHES, SMEM_LIMIT_BYTES, _check, _flat_tables,
-                     adaptive_step, compact_scene, jitter_source, pack_scene,
-                     pack_widths, render_chain, render_forward_with_residuals,
-                     render_kwargs, render_packed, render_packed_ref,
-                     render_tree, render_tree_ref, resolve_device,
-                     unpack_residuals)
+                     adaptive_step, compact_scene, jitter_source, launch_key,
+                     pack_fits, pack_scene, pack_widths, render_chain,
+                     render_forward_with_residuals, render_kwargs,
+                     render_packed, render_residuals_ref, render_tree,
+                     resolve_device, unpack_residuals)
 
 # Diff-table layouts (rows = entity, cols = packed fields)
 SPHD_COLS = 8    # cx cy cz r - - - -
@@ -59,11 +66,27 @@ LIGHTD_COLS = 8  # pos(3) - - - - -
 #: hold (csrc/adjoint_ops.cuh::kMaxLevels, kMaxLights)
 ADJOINT_MAX_DEPTH = 15
 ADJOINT_MAX_LIGHTS = 16
-#: deepest bounce tree K6 and K7 hold: 2^6 - 1 = 63 preorder nodes a
-#: thread (csrc/adjoint_ops.cuh::kTreeAdjMaxDepth), the reference's depth
-TREE_ADJOINT_MAX_DEPTH = 5
+#: the tree depths K6 and K7 are built for (csrc/adjoint_fused.cu::
+#: kTreeAdjDepthCaps): 5, the reference's depth (63 preorder nodes a
+#: thread), and 6, the deepest whose per-thread local memory CUDA can
+#: reserve for every resident thread within a few GB (10,016 B a
+#: thread, 2.52 GiB on an H100; 7 would take 4.87 GiB); a launch takes the
+#: smallest that holds the scene
+TREE_ADJOINT_DEPTH_CAPS = (5, 6)
+TREE_ADJOINT_MAX_DEPTH = TREE_ADJOINT_DEPTH_CAPS[-1]
 #: threads a block of the adjoint kernels (csrc/adjoint_ops.cuh::kAdjThreads)
 ADJOINT_THREADS = 256
+#: threads an H100 holds at once (132 SMs x 2048), for each of which CUDA
+#: reserves a kernel's local memory
+RESIDENT_THREADS = 132 * 2048
+
+
+def tree_adjoint_local_bytes(depth: int) -> int:
+    """Estimated local memory of one K6/K7 tree thread at depth cap
+    ``depth``: per preorder node a 12-byte record and a 60-byte gradient
+    record, per level a 96-byte adjoint frame, and the light sums (16 x 12
+    B); ptxas's figures for the built caps are in PERF.md."""
+    return 72 * (2 ** (depth + 1) - 1) + 96 * (depth + 1) + 200
 
 
 def diff_tables(tables: Dict[str, torch.Tensor], nl: int):
@@ -124,18 +147,6 @@ def replay_grads(tables, v, eye, res: Dict[str, torch.Tensor], g, *,
                  for t, d in zip(leaves, grads))
 
 
-def forward_residuals_ref(tables, v, eye, *, tree: bool,
-                          pack: Tuple[float, float], **kw):
-    """Plain forward with its residuals: ([P,3] RGB, dict(bi, mid, lit)),
-    levels of the chain (``render_packed_ref`` unpacked) or preorder nodes
-    of the tree (``render_tree_ref``'s residual mode).  The keyword
-    arguments are ``render_kwargs``'s."""
-    if tree:
-        return render_tree_ref(tables, v, eye, residuals=True, **kw)
-    img, pk = render_packed_ref(tables, v, eye, pack=pack, **kw)
-    return img, unpack_residuals(pk, kw["nl"], pack)
-
-
 def _l2_terms(img, target, mask, g_scale: float):
     """(masked squared-error sum, cotangent ``g_scale*mask*(img-target)``)."""
     d_raw = img - target
@@ -158,27 +169,26 @@ def adjoint_packed_ref(tables, v, eye, img, target, mask, pk, *,
 
 
 def fused_adjoint_ref(tables, v, eye, target, mask, *, tree: bool,
-                      pack: Tuple[float, float], g_scale: float, **kw):
-    """Plain PyTorch version of K6: the plain forward with its residuals
-    (``forward_residuals_ref``), the masked squared-error sum and the
-    gradient tables under the cotangent ``g_scale*mask*(img-target)`` by
-    autograd through the chain or tree replay.  Returns (loss, dsph, dmat,
-    dlight) as ``adjoint_packed_ref``."""
-    img, res = forward_residuals_ref(tables, v, eye, tree=tree, pack=pack,
-                                     **kw)
+                      g_scale: float, **kw):
+    """Plain PyTorch version of K6: the plain forward with its unpacked
+    residuals (``render_residuals_ref``, no pack), the masked squared-error
+    sum and the gradient tables under the cotangent
+    ``g_scale*mask*(img-target)`` by autograd through the chain or tree
+    replay.  Returns (loss, dsph, dmat, dlight) as ``adjoint_packed_ref``.
+    The keyword arguments are ``render_kwargs``'s."""
+    img, res = render_residuals_ref(tables, v, eye, tree=tree, **kw)
     loss, g = _l2_terms(img, target, mask, g_scale)
     return (loss,) + replay_grads(tables, v, eye, res, g, tree=tree,
                                   nl=kw["nl"], depth=kw["depth"],
                                   atten=kw["atten"])
 
 
-def recompute_adjoint_ref(tables, v, eye, g, *, tree: bool,
-                          pack: Tuple[float, float], **kw):
-    """Plain PyTorch version of K7: the plain forward's residuals, then the
-    gradient tables (dsph, dmat, dlight) under the [P,3] cotangent ``g`` by
-    autograd through the chain or tree replay."""
-    _, res = forward_residuals_ref(tables, v, eye, tree=tree, pack=pack,
-                                   **kw)
+def recompute_adjoint_ref(tables, v, eye, g, *, tree: bool, **kw):
+    """Plain PyTorch version of K7: the plain forward's unpacked residuals
+    (``render_residuals_ref``), then the gradient tables (dsph, dmat,
+    dlight) under the [P,3] cotangent ``g`` by autograd through the chain or
+    tree replay."""
+    _, res = render_residuals_ref(tables, v, eye, tree=tree, **kw)
     return replay_grads(tables, v, eye, res, g, tree=tree, nl=kw["nl"],
                         depth=kw["depth"], atten=kw["atten"])
 
@@ -211,17 +221,26 @@ def _check_planes(v, *planes) -> None:
 def _check_caps(entry: str, depth: int, nl: int, tree: bool) -> None:
     cap = TREE_ADJOINT_MAX_DEPTH if tree else ADJOINT_MAX_DEPTH
     if depth > cap or nl > ADJOINT_MAX_LIGHTS:
+        why = ""
+        if tree and depth > cap:
+            b = tree_adjoint_local_bytes(depth)
+            why = (f"; a thread's records at depth {depth} would take about "
+                   f"{b} B of local memory, {b * RESIDENT_THREADS / 2**30:.1f}"
+                   f" GiB reserved for the card's {RESIDENT_THREADS} "
+                   f"resident threads")
         raise ValueError(f"{entry} holds {'tree' if tree else 'chain'} depth "
                          f"<= {cap} and <= {ADJOINT_MAX_LIGHTS} lights, got "
-                         f"depth {depth}, {nl} lights (ROADMAP.md, port "
+                         f"depth {depth}, {nl} lights{why} (ROADMAP.md, port "
                          f"decisions)")
 
 
-def _launch_adjoint(entry: str, tables, v, nl: int, *args):
+def _launch_adjoint(entry: str, tables, v, nl: int, *args,
+                    bf16: bool = False):
     """Launches the C entry ``rtfs_<entry>`` on (flat tables, ns, nt, m, nl,
     *args, partial, num_blocks, stream), then ``rtfs_adjoint_reduce`` over
-    its per-block rows, and counts the launch.  Returns the column sums as
-    (loss, dsph [ns,8], dmat [m,16], dlight [max(nl,1),8])."""
+    its per-block rows, and counts the launch (its bf16 variant's with
+    ``bf16``).  Returns the column sums as (loss, dsph [ns,8], dmat [m,16],
+    dlight [max(nl,1),8])."""
     if v.device.type != "cuda":
         raise ValueError(f"{entry}: kernels run on CUDA tensors, got "
                          f"{v.device}")
@@ -249,7 +268,7 @@ def _launch_adjoint(entry: str, tables, v, nl: int, *args):
         rc = lib.rtfs_adjoint_reduce(partial.data_ptr(), blocks, ncols,
                                      out.data_ptr(), stream)
         cuda_build.check(lib, rc, "adjoint_reduce")
-    LAUNCHES[entry] += 1
+    LAUNCHES[launch_key(entry, bf16)] += 1
     sphd = out.new_zeros((ns, SPHD_COLS))
     sphd[:, 0:4] = out[1:1 + 4 * ns].view(ns, 4)
     matd = out.new_zeros((m, MATD_COLS))
@@ -286,54 +305,51 @@ def adjoint_packed(tables, v, eye, img, target, mask, pk, *,
 
 def _forward_args(eye, kw, tree: bool):
     """The forward's launch scalars of the K6/K7 C entries: eye, depth,
-    small, atten, white_id, black_id, want_trans, tree."""
+    small, atten, white_id, black_id, want_trans, tree, bf16."""
     return (*(float(e) for e in eye), kw["depth"], kw["small"], kw["atten"],
             int(kw["checker_mats"][0]), int(kw["checker_mats"][1]),
-            int(kw["want_trans"]), int(tree))
+            int(kw["want_trans"]), int(tree), int(kw["bf16"]))
 
 
 def fused_adjoint(tables, v, eye, target, mask, *, tree: bool,
-                  pack: Tuple[float, float], g_scale: float, **kw):
+                  g_scale: float, **kw):
     """K6, forward + L2 loss + adjoint in one dispatch: (loss_sum, dsph,
     dmat, dlight) from the primary-ray directions ``v`` [P,3], the
     ``target`` [P,3] and the pixel ``mask`` [P], with cotangent
     ``g_scale*mask*(img-target)``.  ``tree`` runs the full bounce tree
     (depth <= ``TREE_ADJOINT_MAX_DEPTH``) in place of the chain.  CUDA
     tensors launch csrc/adjoint_fused.cu; CPU tensors run
-    ``fused_adjoint_ref``.  ``pack`` is ``pack_widths``'s; the other
-    keyword arguments are ``render_kwargs``'s."""
+    ``fused_adjoint_ref``.  The other keyword arguments are
+    ``render_kwargs``'s (``bf16`` runs the bf16 forward)."""
     _check(tables, v, kw["depth"], kw["nl"])
     P = v.shape[0]
     _check_planes(v, ("target", target, (P, 3)), ("mask", mask, (P,)))
     _check_caps("fused_adjoint", kw["depth"], kw["nl"], tree)
     if v.device.type == "cpu":
         return fused_adjoint_ref(tables, v, eye, target, mask, tree=tree,
-                                 pack=pack, g_scale=g_scale, **kw)
+                                 g_scale=g_scale, **kw)
     return _launch_adjoint(
         "fused_adjoint", tables, v, kw["nl"], v.data_ptr(), target.data_ptr(),
         mask.data_ptr(), P, *_forward_args(eye, kw, tree), g_scale,
-        float(pack[0]), float(pack[1]))
+        bf16=kw["bf16"])
 
 
-def recompute_adjoint(tables, v, eye, g, *, tree: bool,
-                      pack: Tuple[float, float], **kw):
+def recompute_adjoint(tables, v, eye, g, *, tree: bool, **kw):
     """K7, forward re-trace + adjoint under the cotangent ``g`` [P,3]: the
     gradient tables (dsph, dmat, dlight) of ``sum(g * img)`` along the
     primary-ray directions ``v`` [P,3].  Pixels whose ``g`` is 0 add
-    nothing and are not traced.  ``tree``, ``pack`` and the other keyword
-    arguments as ``fused_adjoint``'s.  CUDA tensors launch
-    csrc/adjoint_fused.cu; CPU tensors run ``recompute_adjoint_ref``."""
+    nothing and are not traced.  ``tree`` and the other keyword arguments
+    as ``fused_adjoint``'s.  CUDA tensors launch csrc/adjoint_fused.cu; CPU
+    tensors run ``recompute_adjoint_ref``."""
     _check(tables, v, kw["depth"], kw["nl"])
     P = v.shape[0]
     _check_planes(v, ("g", g, (P, 3)))
     _check_caps("recompute_adjoint", kw["depth"], kw["nl"], tree)
     if v.device.type == "cpu":
-        return recompute_adjoint_ref(tables, v, eye, g, tree=tree, pack=pack,
-                                     **kw)
+        return recompute_adjoint_ref(tables, v, eye, g, tree=tree, **kw)
     return _launch_adjoint(
         "recompute_adjoint", tables, v, kw["nl"], v.data_ptr(), g.data_ptr(),
-        P, *_forward_args(eye, kw, tree), float(pack[0]),
-        float(pack[1]))[1:]
+        P, *_forward_args(eye, kw, tree), bf16=kw["bf16"])[1:]
 
 
 def fit_grads(tables, v, eye, g, res: Dict[str, torch.Tensor], *, nl: int,
@@ -401,6 +417,12 @@ def scene_tables(scene: FlatScene, config: RenderConfig, device=None):
     return scene, pack_scene(scene), render_kwargs(scene, config)
 
 
+def _pack_counts(scene_c: FlatScene, tables) -> Tuple[int, int, int, int]:
+    """The (nt, ns, m, nl) of ``pack_widths`` for a compacted scene."""
+    return (tables["tri"].shape[0], scene_c.num_spheres,
+            scene_c.num_materials, scene_c.num_lights)
+
+
 def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
                   device=None):
     """The fit kernels' per-step inputs from a scene:
@@ -409,12 +431,13 @@ def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
     keywords (``render_packed(tables, v, eye, pack=akw["pack"], **kw)``)
     and the adjoint's keywords (``adjoint_packed(..., **akw)``), whose
     cotangent scale is that of ``mean((img - target)^2)`` over
-    ``num_pixels`` RGB pixels.  K6 and K7 take ``kw`` with ``akw``'s
-    ``pack`` (and K6 its ``g_scale``)."""
+    ``num_pixels`` RGB pixels.  ``akw["pack"]`` is ``pack_widths``'s, or
+    None where the scene overflows the pack (only K3/K4 take it).  K6 and
+    K7 take ``kw`` (and K6 ``akw``'s ``g_scale``)."""
     scene, tables, kw = scene_tables(scene, config, device)
-    pack = pack_widths(tables["tri"].shape[0], scene.num_spheres,
-                       scene.num_materials, scene.num_lights)
-    akw = dict(pack=pack, g_scale=2.0 / (num_pixels * 3), nl=kw["nl"],
+    counts = _pack_counts(scene, tables)
+    akw = dict(pack=pack_widths(*counts) if pack_fits(*counts) else None,
+               g_scale=2.0 / (num_pixels * 3), nl=kw["nl"],
                depth=kw["depth"], atten=kw["atten"],
                want_trans=kw["want_trans"])
     return scene, tables, kw, akw
@@ -456,6 +479,8 @@ def twophase_loss_grads_kernel(scene: FlatScene, camera: Camera,
     v, eye = prep["v"], prep["eye"]
     scene, tables, kw, akw = kernel_inputs(scene, config, v.shape[0],
                                            device=device)
+    if akw["pack"] is None:
+        pack_widths(*_pack_counts(scene, tables))  # raises: it overflows
     img, pk = render_packed(tables, v, eye, pack=akw["pack"], **kw)
     loss, dsph, dmat, dlight = adjoint_packed(
         tables, v, eye, img, prep["target"], prep["mask"], pk, **akw)
@@ -478,8 +503,7 @@ def fused_loss_grads_kernel(scene: FlatScene, camera: Camera,
                                            device=device)
     loss, dsph, dmat, dlight = fused_adjoint(
         tables, v, eye, prep["target"], prep["mask"],
-        tree=not scene.chain_exact, pack=akw["pack"], g_scale=akw["g_scale"],
-        **kw)
+        tree=not scene.chain_exact, g_scale=akw["g_scale"], **kw)
     return loss, _grads_c(scene, dsph, dmat, dlight)
 
 
@@ -498,13 +522,11 @@ def recompute_grads_kernel(scene: FlatScene, camera: Camera,
     if pts is None:
         pts = screen_points(camera, w, h)
     _, v = primary_rays(camera, torch.as_tensor(pts, device=device))
-    scene, tables, kw, akw = kernel_inputs(scene, config, w * h,
-                                           device=device)
+    scene, tables, kw = scene_tables(scene, config, device)
     g = torch.as_tensor(g, dtype=torch.float32, device=device)
     dsph, dmat, dlight = recompute_adjoint(
         tables, v.contiguous(), camera.eye.tolist(),
-        g.reshape(-1, 3).contiguous(), tree=not scene.chain_exact,
-        pack=akw["pack"], **kw)
+        g.reshape(-1, 3).contiguous(), tree=not scene.chain_exact, **kw)
     return _grads_c(scene, dsph, dmat, dlight)
 
 
@@ -587,15 +609,14 @@ def sampled_forward(scene_full: FlatScene, camera: Camera,
     divisor``.  Samples after every pixel has converged add exactly zero
     and are not rendered.  Returns dict(loss, rays, cots (each rendered
     sample's directions and cotangent, [P,3]), accepts (adaptive only),
-    scene_c, tables, kw, pack, eye, tree): what the per-sample backward
+    scene_c, tables, kw, eye, tree): what the per-sample backward
     (``recompute_adjoint``) takes."""
     device = resolve_device(device)
     camera = camera.to(device)
     h, w, S = config.height, config.width, config.samples
     pts0 = screen_points(camera, w, h)
     P = pts0.shape[0]
-    scene_c, tables, kw, akw = kernel_inputs(scene_full, config, P,
-                                             device=device)
+    scene_c, tables, kw = scene_tables(scene_full, config, device)
     tree = not scene_c.chain_exact
     render = render_tree if tree else render_chain
     eye = camera.eye.tolist()
@@ -633,7 +654,7 @@ def sampled_forward(scene_full: FlatScene, camera: Camera,
     return dict(loss=torch.mean(diff * diff), rays=rays,
                 cots=[c.reshape(P, 3).contiguous() for c in cots],
                 accepts=accepts, scene_c=scene_c, tables=tables, kw=kw,
-                pack=akw["pack"], eye=eye, tree=tree)
+                eye=eye, tree=tree)
 
 
 def _sampled_value_and_grad(params, scene_full: FlatScene, camera: Camera,
@@ -647,7 +668,7 @@ def _sampled_value_and_grad(params, scene_full: FlatScene, camera: Camera,
     sums = None
     for v, g in zip(fw["rays"], fw["cots"]):
         tabs = recompute_adjoint(fw["tables"], v, fw["eye"], g,
-                                 tree=fw["tree"], pack=fw["pack"], **fw["kw"])
+                                 tree=fw["tree"], **fw["kw"])
         sums = tabs if sums is None else tuple(a + b
                                                for a, b in zip(sums, tabs))
     return fw["loss"], grads_to_fitparams(params, scene_full,

@@ -283,10 +283,10 @@ __device__ __forceinline__ void node_reverse(
 
 constexpr int kMaxLevels = 16;  // chain depth <= 15 (adjoint_fused.py)
 constexpr int kMaxLights = 16;
-// Deepest tree the tree adjoint holds (adjoint_fused.py::TREE_ADJOINT_MAX_
-// DEPTH): the reference's own depth, 2^6 - 1 = 63 preorder nodes.
-constexpr int kTreeAdjMaxDepth = 5;
-constexpr int kTreeAdjMaxNodes = (2 << kTreeAdjMaxDepth) - 1;
+// Preorder nodes of a bounce tree of depth d: 2^(d+1) - 1.
+__host__ __device__ constexpr int tree_nodes(int depth) {
+  return (2 << depth) - 1;
+}
 constexpr int kAdjThreads = 256;
 constexpr int kAdjWarps = kAdjThreads / 32;
 
@@ -297,7 +297,8 @@ struct AdjParams {
   int ncols;          // 1 + 4 ns + 9 m + 3 nl
 };
 
-// The pinned topology of a packed word (bi+1) + mid*bw_bi + lits*bw_bi*bw_mid.
+// The pinned topology of a packed word (bi+1) + mid*bw_bi + lits*bw_bi*bw_mid
+// (K4's residual plane).
 __device__ __forceinline__ NodeConst unpack_word(unsigned q, int bw_bi,
                                                  int bw_mid) {
   NodeConst c;
@@ -409,8 +410,9 @@ struct TreeFrame {
 };
 
 // Replay adjoint of the full bounce tree of one pixel (the JAX
-// _adjoint_tree_tile_body, :638-793), from the packed topology words[] of
-// its 2^(depth+1)-1 preorder nodes (a node that misses holds bi = -1).
+// _adjoint_tree_tile_body, :638-793), from the topology records recs[] of
+// its 2^(depth+1)-1 preorder nodes (a node that misses holds bik = -1 and
+// nothing else is read of it), for depth <= MAX_DEPTH.
 // The interleaved primal/reverse recursion becomes an explicit stack of at
 // most depth+1 frames: a node runs its primal, visits its transmitted then
 // its reflected subtree, applies snell_reverse to the children's direction
@@ -418,24 +420,23 @@ struct TreeFrame {
 // its gate (take_t on the transmitted edge, refl_ok on the reflected one,
 // both on a hit) is set and it hits: any other child adds exactly zero.
 // Each hit node's cotangents go to one record, in the order nodes finish.
-template <bool WANT_TRANS>
-__device__ __forceinline__ void tree_adjoint(const Scene& s, const Params& prm,
-                                             const unsigned* words, int bw_bi,
-                                             int bw_mid, float vx, float vy,
-                                             float vz, const float g[3],
-                                             GradRecs<kTreeAdjMaxNodes>& out) {
+template <bool WANT_TRANS, int MAX_DEPTH>
+__device__ __forceinline__ void tree_adjoint(
+    const Scene& s, const Params& prm, const NodeConst* recs, float vx,
+    float vy, float vz, const float g[3],
+    GradRecs<tree_nodes(MAX_DEPTH)>& out) {
   const int depth = prm.depth;
-  TreeFrame st[kTreeAdjMaxDepth + 1];
+  TreeFrame st[MAX_DEPTH + 1];
   int sp = 0;
+  if (recs[0].bik < 0) return;  // the primary ray misses: nothing to add
   {
     TreeFrame& f = st[sp++];
     f.o[0] = prm.eye_x; f.o[1] = prm.eye_y; f.o[2] = prm.eye_z;
     f.v[0] = vx; f.v[1] = vy; f.v[2] = vz;
     f.w[0] = f.w[1] = f.w[2] = 1.0f;
     f.idx = 0; f.level = 0; f.stage = 0;
-    f.c = unpack_word(words[0], bw_bi, bw_mid);
+    f.c = recs[0];
     for (int k = 0; k < 3; ++k) f.ob[k] = f.tb[k] = f.rb[k] = 0.0f;
-    if (f.c.bik < 0) return;  // the primary ray misses: nothing to add
   }
   while (sp > 0) {
     TreeFrame& f = st[sp - 1];
@@ -446,8 +447,8 @@ __device__ __forceinline__ void tree_adjoint(const Scene& s, const Params& prm,
       ++f.stage;
       if (!(mt[trans ? 13 : 14] > 0.5f)) continue;  // gate 0
       const int cidx = trans ? f.idx + 1 : f.idx + (1 << (depth - f.level));
-      const NodeConst cc = unpack_word(words[cidx], bw_bi, bw_mid);
-      if (cc.bik < 0) continue;  // the child misses
+      if (recs[cidx].bik < 0) continue;  // the child misses
+      const NodeConst cc = recs[cidx];
       NodeRec r;
       node_primal(s, f.c, f.o[0], f.o[1], f.o[2], f.v[0], f.v[1], f.v[2],
                   WANT_TRANS, &r);

@@ -26,7 +26,9 @@
 // residual form is the same image code, as the JAX package keeps every
 // chain forward one program shape; levels after the chain ends are still
 // stored, with the value a dead lane has there.  RESIDUALS has no 2^24
-// pack limit: only the 32-bit lit word caps it, at 32 lights.  This first
+// pack limit: only the 32-bit lit word caps it, at 32 lights.  Every form
+// has a BF16 instantiation, RenderConfig.bf16_shading (tile_ops.cuh's bf16
+// shadow sweep and Phong blend; the C entries' `bf16`).  This first
 // version aims to be right; it is not tuned.
 #include "tile_ops.cuh"
 
@@ -35,7 +37,7 @@ namespace rtfs {
 // What a chain kernel writes besides the image.
 enum class ChainOut { kImage, kPacked, kResiduals };
 
-template <bool WANT_TRANS, ChainOut OUT>
+template <bool WANT_TRANS, ChainOut OUT, bool BF16>
 __global__ void __launch_bounds__(256)
 render_chain_kernel(const float* __restrict__ tables, Params prm,
                     const float* __restrict__ v, float* __restrict__ out,
@@ -47,7 +49,7 @@ render_chain_kernel(const float* __restrict__ tables, Params prm,
 
   float col[3] = {0.0f, 0.0f, 0.0f};
   ResidualWriter res(prm, prm.depth + 1, num_pixels, p);
-  int level = chain_forward<WANT_TRANS>(
+  int level = chain_forward<WANT_TRANS, BF16>(
       s, prm, v[3 * p], v[3 * p + 1], v[3 * p + 2], col,
       [&](int lv, int bi, int mid, unsigned lit_bits) {
         if constexpr (OUT == ChainOut::kPacked) {
@@ -77,24 +79,33 @@ render_chain_kernel(const float* __restrict__ tables, Params prm,
   out[3 * p + 2] = col[2];
 }
 
+// The instantiation of form OUT for the launch's flags.
+template <ChainOut OUT>
+RenderKernel pick_chain(int want_trans, int bf16) {
+  if (bf16)
+    return want_trans ? render_chain_kernel<true, OUT, true>
+                      : render_chain_kernel<false, OUT, true>;
+  return want_trans ? render_chain_kernel<true, OUT, false>
+                    : render_chain_kernel<false, OUT, false>;
+}
+
 }  // namespace rtfs
 
 // C entries (bound with ctypes from kernels/render.py).  `tables` is the
 // flat misc | sph | tri | mat | light buffer; `v` and `out` are
-// [num_pixels, 3] f32.  Each launches on `stream` and returns the launch's
-// cudaError_t.
+// [num_pixels, 3] f32; `bf16` selects the bf16_shading instantiation.  Each
+// launches on `stream` and returns the launch's cudaError_t.
 extern "C" int rtfs_render_chain(const float* tables, int ns, int nt, int m,
                                  int nl, const float* v, float* out,
                                  int num_pixels, float eye_x, float eye_y,
                                  float eye_z, int depth, float small,
                                  float atten, int white_id, int black_id,
-                                 int want_trans, void* stream) {
+                                 int want_trans, int bf16, void* stream) {
   rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id,
                    small, atten, eye_x, eye_y, eye_z};
   return static_cast<int>(rtfs::launch_render(
-      want_trans ? rtfs::render_chain_kernel<true, rtfs::ChainOut::kImage>
-                 : rtfs::render_chain_kernel<false, rtfs::ChainOut::kImage>,
-      tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+      rtfs::pick_chain<rtfs::ChainOut::kImage>(want_trans, bf16), tables, prm,
+      v, out, num_pixels, static_cast<cudaStream_t>(stream)));
 }
 
 // The packed forward: as rtfs_render_chain, plus `pk` [depth+1, num_pixels]
@@ -104,15 +115,14 @@ extern "C" int rtfs_render_packed(const float* tables, int ns, int nt, int m,
                                   int num_pixels, float eye_x, float eye_y,
                                   float eye_z, int depth, float small,
                                   float atten, int white_id, int black_id,
-                                  int want_trans, float* pk, float bw_bi,
-                                  float bw_mid, void* stream) {
+                                  int want_trans, int bf16, float* pk,
+                                  float bw_bi, float bw_mid, void* stream) {
   if (nl < 0 || nl > 24) return static_cast<int>(cudaErrorInvalidValue);
   rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id,
                    small, atten, eye_x, eye_y, eye_z, pk, bw_bi, bw_mid};
   return static_cast<int>(rtfs::launch_render(
-      want_trans ? rtfs::render_chain_kernel<true, rtfs::ChainOut::kPacked>
-                 : rtfs::render_chain_kernel<false, rtfs::ChainOut::kPacked>,
-      tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+      rtfs::pick_chain<rtfs::ChainOut::kPacked>(want_trans, bf16), tables,
+      prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
 }
 
 // The residual forward: as rtfs_render_chain, plus `res` [2+nl, depth+1,
@@ -122,16 +132,14 @@ extern "C" int rtfs_render_chain_residuals(
     const float* tables, int ns, int nt, int m, int nl, const float* v,
     float* out, int num_pixels, float eye_x, float eye_y, float eye_z,
     int depth, float small, float atten, int white_id, int black_id,
-    int want_trans, float* res, void* stream) {
+    int want_trans, int bf16, float* res, void* stream) {
   if (nl < 0 || nl > rtfs::kResidualMaxLights || res == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id, small, atten,
                    eye_x, eye_y, eye_z, nullptr, 0.0f, 0.0f, res};
   return static_cast<int>(rtfs::launch_render(
-      want_trans
-          ? rtfs::render_chain_kernel<true, rtfs::ChainOut::kResiduals>
-          : rtfs::render_chain_kernel<false, rtfs::ChainOut::kResiduals>,
-      tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+      rtfs::pick_chain<rtfs::ChainOut::kResiduals>(want_trans, bf16), tables,
+      prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* rtfs_error_string(int code) {

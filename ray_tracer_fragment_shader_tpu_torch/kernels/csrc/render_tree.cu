@@ -21,12 +21,14 @@
 // tree then costs what the chain does.  Its residuals are still written,
 // with a dead lane's values (tile_ops.cuh::ResidualWriter: the visits come
 // in increasing preorder index, so the gaps are filled as they appear).
+// Both forms have a BF16 instantiation, RenderConfig.bf16_shading
+// (tile_ops.cuh's bf16 shadow sweep and Phong blend; the C entries' `bf16`).
 // This first version aims to be right; it is not tuned.
 #include "tile_ops.cuh"
 
 namespace rtfs {
 
-template <bool WANT_TRANS, bool RESIDUALS>
+template <bool WANT_TRANS, bool RESIDUALS, bool BF16>
 __global__ void __launch_bounds__(256)
 render_tree_kernel(const float* __restrict__ tables, Params prm,
                    const float* __restrict__ v, float* __restrict__ out,
@@ -39,15 +41,27 @@ render_tree_kernel(const float* __restrict__ tables, Params prm,
   float col[3] = {0.0f, 0.0f, 0.0f};
   const int nodes = (2 << prm.depth) - 1;
   ResidualWriter res(prm, nodes, num_pixels, p);
-  tree_forward<WANT_TRANS>(s, prm, v[3 * p], v[3 * p + 1], v[3 * p + 2], col,
-                           [&](int k, int bi, int mid, unsigned lit_bits) {
-                             if constexpr (RESIDUALS)
-                               res.hit(k, bi, mid, lit_bits);
-                           });
+  tree_forward<WANT_TRANS, BF16>(s, prm, v[3 * p], v[3 * p + 1], v[3 * p + 2],
+                                 col,
+                                 [&](int k, int bi, int mid,
+                                     unsigned lit_bits) {
+                                   if constexpr (RESIDUALS)
+                                     res.hit(k, bi, mid, lit_bits);
+                                 });
   if constexpr (RESIDUALS) res.fill_to(nodes);
   out[3 * p] = col[0];
   out[3 * p + 1] = col[1];
   out[3 * p + 2] = col[2];
+}
+
+// The instantiation for the launch's flags.
+template <bool RESIDUALS>
+RenderKernel pick_tree(int want_trans, int bf16) {
+  if (bf16)
+    return want_trans ? render_tree_kernel<true, RESIDUALS, true>
+                      : render_tree_kernel<false, RESIDUALS, true>;
+  return want_trans ? render_tree_kernel<true, RESIDUALS, false>
+                    : render_tree_kernel<false, RESIDUALS, false>;
 }
 
 }  // namespace rtfs
@@ -59,15 +73,14 @@ extern "C" int rtfs_render_tree(const float* tables, int ns, int nt, int m,
                                 int num_pixels, float eye_x, float eye_y,
                                 float eye_z, int depth, float small,
                                 float atten, int white_id, int black_id,
-                                int want_trans, void* stream) {
+                                int want_trans, int bf16, void* stream) {
   if (depth < 0 || depth > rtfs::kTreeMaxDepth)
     return static_cast<int>(cudaErrorInvalidValue);
   rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id,
                    small, atten, eye_x, eye_y, eye_z};
   return static_cast<int>(rtfs::launch_render(
-      want_trans ? rtfs::render_tree_kernel<true, false>
-                 : rtfs::render_tree_kernel<false, false>,
-      tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+      rtfs::pick_tree<false>(want_trans, bf16), tables, prm, v, out,
+      num_pixels, static_cast<cudaStream_t>(stream)));
 }
 
 // The residual forward of the tree: as rtfs_render_tree, plus `res`
@@ -77,14 +90,13 @@ extern "C" int rtfs_render_tree_residuals(
     const float* tables, int ns, int nt, int m, int nl, const float* v,
     float* out, int num_pixels, float eye_x, float eye_y, float eye_z,
     int depth, float small, float atten, int white_id, int black_id,
-    int want_trans, float* res, void* stream) {
+    int want_trans, int bf16, float* res, void* stream) {
   if (depth < 0 || depth > rtfs::kTreeMaxDepth || nl < 0 ||
       nl > rtfs::kResidualMaxLights || res == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   rtfs::Params prm{ns, nt, m, nl, depth, white_id, black_id, small, atten,
                    eye_x, eye_y, eye_z, nullptr, 0.0f, 0.0f, res};
   return static_cast<int>(rtfs::launch_render(
-      want_trans ? rtfs::render_tree_kernel<true, true>
-                 : rtfs::render_tree_kernel<false, true>,
-      tables, prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+      rtfs::pick_tree<true>(want_trans, bf16), tables, prm, v, out,
+      num_pixels, static_cast<cudaStream_t>(stream)));
 }

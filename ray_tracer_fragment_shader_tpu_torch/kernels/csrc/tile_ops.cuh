@@ -14,8 +14,17 @@
 // cuda_build.py): rounded as the plain PyTorch version rounds, the forwards
 // pick its hit topology, so the fit kernels' forwards and the render
 // kernels' agree bit for bit (PERF.md, PR 3).
+//
+// The BF16 template flag is RenderConfig.bf16_shading (_make_tile_ops's
+// bf16_shading, render_pallas.py:310-371 and :540-555): the any-hit shadow
+// sweep (occluded_any) and the Phong blend (shade) multiply and add in
+// bfloat16, every compare, reciprocal and square root on an f32 upcast, the
+// rest of the node in f32.  Each bf16 operation rounds on its own, as the
+// TPU's and PyTorch's bf16 ops do: the __h*_rn intrinsics, which the CUDA
+// math API keeps out of fused multiply-adds.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace rtfs {
@@ -187,25 +196,105 @@ __device__ __forceinline__ void intersect_closest(
   if constexpr (CARRY_TRANSP) *transp_out = transp;
 }
 
+// ---- the bf16 forms (render_pallas.py:310-371, :540-555) -----------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ bf16 to_bf16(float x) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ bf16 bmul(bf16 a, bf16 b) { return __hmul_rn(a, b); }
+__device__ __forceinline__ bf16 badd(bf16 a, bf16 b) { return __hadd_rn(a, b); }
+__device__ __forceinline__ bf16 bsub(bf16 a, bf16 b) { return __hsub_rn(a, b); }
+// a.b over three components, left to right: (ax*bx + ay*by) + az*bz
+__device__ __forceinline__ bf16 bdot(bf16 ax, bf16 ay, bf16 az, bf16 bx,
+                                     bf16 by, bf16 bz) {
+  return badd(badd(bmul(ax, bx), bmul(ay, by)), bmul(az, bz));
+}
+
+// A ray cast to bf16 once per shadow sweep: origin, direction, unit
+// direction.
+struct RayBf16 {
+  bf16 ox, oy, oz, vx, vy, vz, ux, uy, uz;
+};
+
+// tri_hit with the dot products, hit point and barycentrics in bf16 (each
+// table scalar cast on its own); mm and every compare in f32.
+__device__ __forceinline__ bool tri_hit_bf16(const Scene& s, int i,
+                                             const RayBf16& b) {
+  const float* t = s.tri + i * TRI_COLS;
+  const bf16 nx = to_bf16(t[3]), ny = to_bf16(t[4]), nz = to_bf16(t[5]);
+  const float ndv = to_f32(bdot(nx, ny, nz, b.vx, b.vy, b.vz));
+  const bool plane_ok = fabsf(ndv) >= s.small;
+  const float ndo = to_f32(bdot(nx, ny, nz, b.ox, b.oy, b.oz));
+  const float mm = (t[16] - ndo) * (1.0f / (plane_ok ? ndv : 1.0f));
+  const bf16 mmb = to_bf16(mm);
+  const bf16 px = bsub(badd(b.ox, bmul(mmb, b.vx)), to_bf16(t[0]));
+  const bf16 py = bsub(badd(b.oy, bmul(mmb, b.vy)), to_bf16(t[1]));
+  const bf16 pz = bsub(badd(b.oz, bmul(mmb, b.vz)), to_bf16(t[2]));
+  const bf16 wu = bdot(px, py, pz, to_bf16(t[6]), to_bf16(t[7]),
+                       to_bf16(t[8]));
+  const bf16 wv = bdot(px, py, pz, to_bf16(t[9]), to_bf16(t[10]),
+                       to_bf16(t[11]));
+  const bf16 uv = to_bf16(t[12]), uu = to_bf16(t[13]), vv = to_bf16(t[14]);
+  const bf16 inv_den = to_bf16(t[TRI_INV_DEN]);
+  const float sb = to_f32(bmul(bsub(bmul(uv, wv), bmul(vv, wu)), inv_den));
+  const float tb = to_f32(bmul(bsub(bmul(uv, wu), bmul(uu, wv)), inv_den));
+  return plane_ok && mm >= s.small && sb >= 0.0f && tb >= 0.0f &&
+         sb + tb <= 1.0f;
+}
+
+// sph_hit with the centre offsets and dot products in bf16; disc around
+// them, the root and the compares in f32.
+__device__ __forceinline__ bool sph_hit_bf16(const Scene& s, int i,
+                                             const RayBf16& b) {
+  const float* c = s.sph + i * SPH_COLS;
+  const bf16 dx = bsub(to_bf16(c[0]), b.ox);
+  const bf16 dy = bsub(to_bf16(c[1]), b.oy);
+  const bf16 dz = bsub(to_bf16(c[2]), b.oz);
+  const float ud = to_f32(bdot(b.ux, b.uy, b.uz, dx, dy, dz));
+  const float disc = ud * ud - to_f32(bdot(dx, dy, dz, dx, dy, dz)) +
+                     c[3] * c[3];
+  const float dist = disc > 0.0f ? ud - sqrtf(disc) : ud;
+  return disc >= 0.0f && dist >= s.small;
+}
+
 // Any-hit occlusion: valid only when no material is transparent, where
 // "lit = nearest occluder missing or transparent" (MySdlApplication.cpp:1221)
-// degenerates to "lit = no occluder".  Stops at the first occluder.
+// degenerates to "lit = no occluder".  Stops at the first occluder.  BF16
+// tests the primitives in their bf16 forms.
+template <bool BF16>
 __device__ __forceinline__ bool occluded_any(const Scene& s, float ox,
                                              float oy, float oz, float vx,
                                              float vy, float vz, int excl,
                                              const Ray& r) {
   if (!r.ok) return false;
+  RayBf16 b;
+  if constexpr (BF16) {
+    b = RayBf16{to_bf16(ox), to_bf16(oy), to_bf16(oz),
+                to_bf16(vx), to_bf16(vy), to_bf16(vz),
+                to_bf16(r.ux), to_bf16(r.uy), to_bf16(r.uz)};
+  }
   for (int i = 0; i < s.nt; ++i) {
     const float* t = s.tri + i * TRI_COLS;
     if (!(t[19] > 0.5f) || i == excl) continue;
-    float mm;
-    if (tri_hit(s, i, ox, oy, oz, vx, vy, vz, &mm)) return true;
+    if constexpr (BF16) {
+      if (tri_hit_bf16(s, i, b)) return true;
+    } else {
+      float mm;
+      if (tri_hit(s, i, ox, oy, oz, vx, vy, vz, &mm)) return true;
+    }
   }
   for (int i = 0; i < s.ns; ++i) {
     const float* c = s.sph + i * SPH_COLS;
     if (!(c[5] > 0.5f) || s.nt + i == excl) continue;
-    float dist;
-    if (sph_hit(s, i, ox, oy, oz, r.ux, r.uy, r.uz, &dist)) return true;
+    if constexpr (BF16) {
+      if (sph_hit_bf16(s, i, b)) return true;
+    } else {
+      float dist;
+      if (sph_hit(s, i, ox, oy, oz, r.ux, r.uy, r.uz, &dist)) return true;
+    }
   }
   return false;
 }
@@ -298,9 +387,12 @@ __device__ __forceinline__ Dirs secondary_dirs(const Ray& r, const Surf& f,
 // Per-light shadow ray plus Phong accumulation (MySdlApplication.cpp
 // :1213-1228) into col, weighted by the throughput thr.  ALL_OPAQUE (no
 // transparent material) selects the any-hit shadow sweep; otherwise the
-// nearest occluder's transparency flag decides.  Returns the shadow sweeps'
-// booleans as bits (bit li: light li lit), before the hitm mask.
-template <bool ALL_OPAQUE>
+// nearest occluder's transparency flag decides (in f32 with BF16 too).
+// BF16 blends in bf16: the light colour folds into w in f32, then
+// thr * (w*L) * (amb + ndots*dif + udotr*spe) in bf16, added to the f32 col.
+// Returns the shadow sweeps' booleans as bits (bit li: light li lit),
+// before the hitm mask.
+template <bool ALL_OPAQUE, bool BF16>
 __device__ __forceinline__ unsigned shade(const Scene& s, const Surf& f,
                                           int bi, bool hitm, const Ray& r,
                                           const Dirs& d, const float* mt,
@@ -312,7 +404,8 @@ __device__ __forceinline__ unsigned shade(const Scene& s, const Surf& f,
     const Ray sr = ray_setup(svx, svy, svz, hitm);
     bool lit;
     if constexpr (ALL_OPAQUE) {
-      lit = !occluded_any(s, f.px, f.py, f.pz, svx, svy, svz, bi, sr);
+      lit = !occluded_any<BF16>(s, f.px, f.py, f.pz, svx, svy, svz, bi,
+                                sr);
     } else {
       float sd, transp;
       int sbi;
@@ -327,9 +420,20 @@ __device__ __forceinline__ unsigned shade(const Scene& s, const Surf& f,
     const float ndots = fabsf(f.nx * svx + f.ny * svy + f.nz * svz) * inv_sl;
     const float udotr = fabsf(r.ux * d.rx + r.uy * d.ry + r.uz * d.rz);
     const float w = (lit && hitm) ? att : 0.0f;
-    col[0] += thr[0] * w * (mt[0] + ndots * mt[3] + udotr * mt[6]) * L[3];
-    col[1] += thr[1] * w * (mt[1] + ndots * mt[4] + udotr * mt[7]) * L[4];
-    col[2] += thr[2] * w * (mt[2] + ndots * mt[5] + udotr * mt[8]) * L[5];
+    if constexpr (BF16) {
+      const bf16 nb = to_bf16(ndots), ub = to_bf16(udotr);
+      for (int ch = 0; ch < 3; ++ch) {
+        const bf16 blend =
+            badd(badd(to_bf16(mt[ch]), bmul(nb, to_bf16(mt[3 + ch]))),
+                 bmul(ub, to_bf16(mt[6 + ch])));
+        col[ch] += to_f32(bmul(bmul(to_bf16(thr[ch]), to_bf16(w * L[3 + ch])),
+                               blend));
+      }
+    } else {
+      col[0] += thr[0] * w * (mt[0] + ndots * mt[3] + udotr * mt[6]) * L[3];
+      col[1] += thr[1] * w * (mt[1] + ndots * mt[4] + udotr * mt[7]) * L[4];
+      col[2] += thr[2] * w * (mt[2] + ndots * mt[5] + udotr * mt[8]) * L[5];
+    }
   }
   return lit_bits;
 }
@@ -338,7 +442,7 @@ __device__ __forceinline__ unsigned shade(const Scene& s, const Surf& f,
 // a hit its surface, material row and secondary directions, with the node's
 // own shading added to col and its lit bits in *lit_bits.  Returns false on
 // a miss, whose contribution (and whole subtree's) is exactly zero.
-template <bool WANT_TRANS>
+template <bool WANT_TRANS, bool BF16>
 __device__ __forceinline__ bool trace_node(const Scene& s, float ox, float oy,
                                            float oz, float vx, float vy,
                                            float vz, int excl,
@@ -354,7 +458,8 @@ __device__ __forceinline__ bool trace_node(const Scene& s, float ox, float oy,
   *f = hit_attrs(s, bd, *bi, hitm, ox, oy, oz, r);
   *mt = s.mat + f->mid * MAT_COLS;
   *d = secondary_dirs<WANT_TRANS>(r, *f, (*mt)[12]);
-  *lit_bits = shade<!WANT_TRANS>(s, *f, *bi, hitm, r, *d, *mt, thr, col);
+  *lit_bits =
+      shade<!WANT_TRANS, BF16>(s, *f, *bi, hitm, r, *d, *mt, thr, col);
   return true;
 }
 
@@ -368,7 +473,7 @@ constexpr int kTreeMaxDepth = 10;
 // level's shading to col and calls sink(level, bi, mid, lit_bits) at each
 // level that hits.  The chain ends at a miss, and after a level whose chosen
 // child is not traced.  Returns the number of levels hit.
-template <bool WANT_TRANS, typename Sink>
+template <bool WANT_TRANS, bool BF16, typename Sink>
 __device__ __forceinline__ int chain_forward(const Scene& s, const Params& prm,
                                              float vx, float vy, float vz,
                                              float col[3], Sink&& sink) {
@@ -382,8 +487,8 @@ __device__ __forceinline__ int chain_forward(const Scene& s, const Params& prm,
     const float* mt;
     Dirs d;
     unsigned lit_bits;
-    if (!trace_node<WANT_TRANS>(s, ox, oy, oz, vx, vy, vz, excl, thr, col,
-                                &f, &bi, &mt, &d, &lit_bits))
+    if (!trace_node<WANT_TRANS, BF16>(s, ox, oy, oz, vx, vy, vz, excl, thr,
+                                      col, &f, &bi, &mt, &d, &lit_bits))
       break;  // a miss adds zero from here on
     sink(level, bi, f.mid, lit_bits);
     // child ray selection (chain-exact): transmitted if traced, else
@@ -420,7 +525,7 @@ struct TreeNode {
 // child of node idx at level l is idx+1, the reflected one idx+2^(depth-l).
 // A node that misses, or a child whose weight gate is 0, adds exactly zero
 // and is not visited.
-template <bool WANT_TRANS, typename Sink>
+template <bool WANT_TRANS, bool BF16, typename Sink>
 __device__ __forceinline__ void tree_forward(const Scene& s, const Params& prm,
                                              float vx, float vy, float vz,
                                              float col[3], Sink&& sink) {
@@ -435,9 +540,9 @@ __device__ __forceinline__ void tree_forward(const Scene& s, const Params& prm,
     const float* mt;
     Dirs d;
     unsigned lit_bits;
-    if (!trace_node<WANT_TRANS>(s, nd.ox, nd.oy, nd.oz, nd.vx, nd.vy, nd.vz,
-                                nd.excl, nd.thr, col, &f, &bi, &mt, &d,
-                                &lit_bits))
+    if (!trace_node<WANT_TRANS, BF16>(s, nd.ox, nd.oy, nd.oz, nd.vx, nd.vy,
+                                      nd.vz, nd.excl, nd.thr, col, &f, &bi,
+                                      &mt, &d, &lit_bits))
       continue;  // a miss zeroes both children
     sink(nd.idx, bi, f.mid, lit_bits);
     if (nd.level == prm.depth) continue;

@@ -50,7 +50,7 @@ _RENDER_ARGS = ([_P] + [_I] * 4        # tables; ns nt m nl
                 + [_P, _P, _I]         # v out num_pixels
                 + [_F] * 3 + [_I]      # eye; depth
                 + [_F] * 2             # small atten
-                + [_I] * 3)            # white_id black_id want_trans
+                + [_I] * 4)            # white_id black_id want_trans bf16
 #: argtypes of each C entry (the stream pointer comes last in each)
 _ENTRIES = {
     "rtfs_render_chain": _RENDER_ARGS + [_P],
@@ -67,15 +67,15 @@ _ENTRIES = {
     # partial num_blocks num_cols out stream
     "rtfs_adjoint_reduce": [_P, _I, _I, _P, _P],
     # tables; ns nt m nl; v target mask; num_pixels; eye; depth; small
-    # atten; white_id black_id want_trans tree; g_scale bw_bi bw_mid;
-    # partial num_blocks; stream
+    # atten; white_id black_id want_trans tree bf16; g_scale; partial
+    # num_blocks; stream
     "rtfs_fused_adjoint": ([_P] + [_I] * 4 + [_P] * 3 + [_I] + [_F] * 3
-                           + [_I] + [_F] * 2 + [_I] * 4 + [_F] * 3
+                           + [_I] + [_F] * 2 + [_I] * 5 + [_F]
                            + [_P, _I, _P]),
     # as rtfs_fused_adjoint with the cotangent g for target and mask, and
     # no g_scale
     "rtfs_recompute_adjoint": ([_P] + [_I] * 4 + [_P] * 2 + [_I] + [_F] * 3
-                               + [_I] + [_F] * 2 + [_I] * 4 + [_F] * 2
+                               + [_I] + [_F] * 2 + [_I] * 5
                                + [_P, _I, _P]),
     # tables; ns nt m nl; v g bi mid lit; num_pixels; eye; depth; atten;
     # want_trans; partial num_blocks; stream

@@ -29,6 +29,10 @@ which the CPU tests hold against the JAX package and ``chip_smoke.py``
 holds the kernels against on the card.  ``LAUNCHES`` counts kernel
 launches per wrapper.
 
+Every kernel has a ``bf16_shading`` instantiation (``render_kwargs``'s
+``bf16``, counted under ``launch_key``): the any-hit shadow sweep and the
+Phong blend in bfloat16, as ``_make_tile_ops`` computes them.
+
 As in the JAX kernels, bounding-sphere pruning is skipped (no image effect
 for well-formed scenes) and the origin-primitive exclusion (SEMANTICS.md D1)
 is kept exactly.
@@ -64,21 +68,34 @@ RESIDUAL_MAX_LIGHTS = 32
 #: dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT_BYTES = 232448
 
+#: the wrappers whose kernels have a ``bf16_shading`` variant
+#: (``launch_key``)
+BF16_KERNELS = ("render_chain", "render_tree", "render_packed",
+                "render_chain_residuals", "render_tree_residuals",
+                "fused_adjoint", "recompute_adjoint")
 #: kernel launches per wrapper, counted where each launches its kernel
 #: (``adjoint_packed``, ``fused_adjoint``, ``recompute_adjoint`` and
 #: ``fit_grads`` live in kernels/adjoint_fused.py, the probes ``mix_chain``,
-#: ``op_chain`` and ``bf16_chain`` in kernels/probe.py)
+#: ``op_chain`` and ``bf16_chain`` in kernels/probe.py); a bf16 variant
+#: counts under its own key, ``<wrapper>_bf16``
 LAUNCHES: Dict[str, int] = {"render_chain": 0, "render_tree": 0,
                              "render_packed": 0, "render_chain_residuals": 0,
                              "render_tree_residuals": 0, "adjoint_packed": 0,
                              "fused_adjoint": 0, "recompute_adjoint": 0,
                              "fit_grads": 0, "mix_chain": 0, "op_chain": 0,
-                             "bf16_chain": 0}
+                             "bf16_chain": 0,
+                             **{f"{k}_bf16": 0 for k in BF16_KERNELS}}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def launch_key(entry: str, bf16: bool) -> str:
+    """The ``LAUNCHES`` key of wrapper ``entry``'s kernel: its bf16 variant
+    counts apart."""
+    return f"{entry}_bf16" if bf16 else entry
 
 
 def resolve_device(device=None) -> torch.device:
@@ -195,17 +212,31 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _bf16(x) -> torch.Tensor:
+    """The table scalar ``x`` cast to bfloat16 (a 0-dim CPU tensor, which
+    combines with tensors on any device), as the TPU kernel splats an SMEM
+    scalar to a bf16 plane."""
+    return torch.tensor(x, dtype=torch.bfloat16)
+
+
 class _PlainOps:
     """The per-pixel device functions of the kernels (csrc/tile_ops.cuh),
     vectorised over a flat [P] pixel axis: the plain PyTorch version the
     CPU path runs and the card's kernels are checked against.  Sweeps loop
     over primitives in Python, in the op order of the JAX package's
     ``render_pallas.py::_make_tile_ops``; table entries are Python floats
-    (the TPU kernel's SMEM scalars), ids are f32 planes."""
+    (the TPU kernel's SMEM scalars), ids are f32 planes.
+
+    ``bf16`` is ``RenderConfig.bf16_shading``: the any-hit shadow sweep
+    (``_tri_hit_bf16``, ``_sph_hit_bf16``) and the Phong blend of ``shade``
+    multiply and add in bfloat16 where ``_make_tile_ops`` does, each op
+    rounded to nearest even on its own (PyTorch's bf16 ops, the TPU's
+    per-op rounding); compares, reciprocals, square roots and the rest of
+    the node stay f32."""
 
     def __init__(self, tables, *, num_pixels: int, nl: int, small: float,
                  atten: float, checker_mats: Tuple[int, int],
-                 all_opaque: bool):
+                 all_opaque: bool, bf16: bool = False):
         # the table columns hit_attrs and mat_attrs load by id
         self.t_tri_attr = tables["tri"][:, [3, 4, 5, 17, 18]]
         self.t_sph_attr = tables["sph"][:, [0, 1, 2, 4]]
@@ -220,6 +251,7 @@ class _PlainOps:
         self.small, self.atten = small, atten
         self.white_id, self.black_id = (float(c) for c in checker_mats)
         self.all_opaque = all_opaque
+        self.bf16 = bf16
         self.board_x, self.board_z = misc[3], misc[5]
         self.board_half = misc[6]
         self.inv_sq = _f32(np.float32(1.0) / np.float32(misc[7]))
@@ -264,6 +296,45 @@ class _PlainOps:
                & (excl != float(i + self.nt)))
         return hit, s
 
+    # -- the bf16 forms (render_pallas.py:310-371), on rays cast once --
+
+    def _tri_hit_bf16(self, i, ob, vb, ok, excl):
+        """Triangle i's hit predicate: the dot products, hit point and
+        barycentrics in bf16, ``mm`` and every compare in f32."""
+        t, b, small = self.tri[i], _bf16, self.small
+        oxb, oyb, ozb = ob
+        vxb, vyb, vzb = vb
+        nx, ny, nz = b(t[3]), b(t[4]), b(t[5])
+        ndv = (nx * vxb + ny * vyb + nz * vzb).float()
+        plane_ok = torch.abs(ndv) >= small
+        ndo = (nx * oxb + ny * oyb + nz * ozb).float()
+        mm = (t[16] - ndo) * (1.0 / torch.where(plane_ok, ndv, 1.0))
+        mmb = mm.bfloat16()
+        px = oxb + mmb * vxb - b(t[0])
+        py = oyb + mmb * vyb - b(t[1])
+        pz = ozb + mmb * vzb - b(t[2])
+        wu = px * b(t[6]) + py * b(t[7]) + pz * b(t[8])
+        wv = px * b(t[9]) + py * b(t[10]) + pz * b(t[11])
+        uv, uu, vv = b(t[12]), b(t[13]), b(t[14])
+        inv_den = b(self.inv_den[i])
+        sb = ((uv * wv - vv * wu) * inv_den).float()
+        tb = ((uv * wu - uu * wv) * inv_den).float()
+        return (plane_ok & (mm >= small) & (sb >= 0.0) & (tb >= 0.0)
+                & (sb + tb <= 1.0) & ok & (excl != float(i)))
+
+    def _sph_hit_bf16(self, i, ob, ub, ok, excl):
+        """Sphere i's hit predicate: the offsets and dot products in bf16,
+        ``disc`` around them, the root and the compares in f32."""
+        c, b = self.sph[i], _bf16
+        dx, dy, dz = (b(c[k]) - o for k, o in enumerate(ob))
+        uxb, uyb, uzb = ub
+        ud = (uxb * dx + uyb * dy + uzb * dz).float()
+        disc = ud * ud - (dx * dx + dy * dy + dz * dz).float() + self.rr[i]
+        disc_ok = disc > 0.0
+        s = ud - torch.sqrt(torch.where(disc_ok, disc, 1.0)) * disc_ok.float()
+        return ((disc >= 0.0) & (s >= self.small) & ok
+                & (excl != float(i + self.nt)))
+
     def intersect_all(self, ox, oy, oz, vx, vy, vz, excl, ray_ok,
                       carry_transp=False, any_hit=False):
         """Closest hit, triangles first with strict < — (bd, bi, ux, uy, uz)
@@ -276,6 +347,16 @@ class _PlainOps:
         ux, uy, uz = vx * inv_vlen, vy * inv_vlen, vz * inv_vlen
         tris = [i for i in range(self.nt) if self.tri[i][19] > 0.5]
         sphs = [i for i in range(self.ns) if self.sph[i][5] > 0.5]
+        if any_hit and self.bf16:
+            ob = tuple(x.bfloat16() for x in (ox, oy, oz))
+            vb = tuple(x.bfloat16() for x in (vx, vy, vz))
+            ub = tuple(x.bfloat16() for x in (ux, uy, uz))
+            occ = torch.zeros_like(ok)
+            for i in tris:
+                occ = occ | self._tri_hit_bf16(i, ob, vb, ok, excl)
+            for i in sphs:
+                occ = occ | self._sph_hit_bf16(i, ob, ub, ok, excl)
+            return occ
         if any_hit:
             occ = torch.zeros_like(ok)
             for i in tris:
@@ -393,6 +474,18 @@ class _PlainOps:
             ndots = torch.abs(nx * svx + ny * svy + nz * svz) * inv_sl
             udotr = torch.abs(ux * rx + uy * ry + uz * rz)
             w = torch.where(lit & hitm, att, 0.0)
+            if self.bf16:
+                # render_pallas.py:540-555: the light colour folds into w in
+                # f32, the blend runs in bf16, the sum stays f32
+                nb, ub = ndots.bfloat16(), udotr.bfloat16()
+                col_r, col_g, col_b = (
+                    c + (t.bfloat16() * (w * lc).bfloat16()
+                         * (a.bfloat16() + nb * d.bfloat16()
+                            + ub * sp.bfloat16())).float()
+                    for c, t, lc, a, d, sp in zip(
+                        (col_r, col_g, col_b), (thr_r, thr_g, thr_b),
+                        (lr, lg, lb), amb, dif, spe))
+                continue
             col_r = col_r + (thr_r * w * (amb[0] + ndots * dif[0]
                                           + udotr * spe[0]) * lr)
             col_g = col_g + (thr_g * w * (amb[1] + ndots * dif[1]
@@ -421,14 +514,17 @@ class _PlainOps:
 
 def _chain_ref(tables, v, eye, *, nl: int, depth: int, small: float,
                atten: float, checker_mats: Tuple[int, int], want_trans: bool,
+               bf16: bool = False,
                pack: Optional[Tuple[float, float]] = None,
                residuals: bool = False):
     """The chain over depth+1 levels (render_pallas.py::_chain_forward):
     ([P,3] RGB, [depth+1, P] packed residuals with ``pack``, the unpacked
-    planes dict(bi, mid, lit) with ``residuals``, else None)."""
+    planes dict(bi, mid, lit) with ``residuals``, else None).  ``bf16``:
+    ``_PlainOps``'s."""
     P = v.shape[0]
     ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
-                    checker_mats=checker_mats, all_opaque=not want_trans)
+                    checker_mats=checker_mats, all_opaque=not want_trans,
+                    bf16=bf16)
     ox, oy, oz = (ops.full(_f32(e)) for e in eye)
     vx, vy, vz = v[:, 0], v[:, 1], v[:, 2]
     thr = (ops.full(1.0),) * 3
@@ -506,7 +602,8 @@ def n_tree_nodes(depth: int) -> int:
 
 def render_tree_ref(tables, v, eye, *, nl: int, depth: int, small: float,
                     atten: float, checker_mats: Tuple[int, int],
-                    want_trans: bool, residuals: bool = False):
+                    want_trans: bool, bf16: bool = False,
+                    residuals: bool = False):
     """Plain PyTorch version of the tree kernel: the full binary bounce tree
     in preorder, transmitted child (weight T) before reflected (weight 1-T)
     (render_pallas.py::_tree_forward) -> [P,3] RGB.  With ``residuals``
@@ -515,10 +612,12 @@ def render_tree_ref(tables, v, eye, *, nl: int, depth: int, small: float,
     over the K = ``n_tree_nodes(depth)`` preorder nodes, as f32 (the layout
     kernels/adjoint.py::replay_render_tree reads; ``_tree_forward``'s
     ``res_refs``).  A node whose ray is masked to zero holds what a dead
-    TPU lane stores: bi = -1, mid = 0 and every lit flag 1."""
+    TPU lane stores: bi = -1, mid = 0 and every lit flag 1.  ``bf16``:
+    ``_PlainOps``'s."""
     P = v.shape[0]
     ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
-                    checker_mats=checker_mats, all_opaque=not want_trans)
+                    checker_mats=checker_mats, all_opaque=not want_trans,
+                    bf16=bf16)
     res = dict(bi=[], mid=[], lit=[]) if residuals else None
 
     def node(o, d, thr, excl, alive, level, col):
@@ -604,16 +703,17 @@ def _flat_tables(tables, nl: int) -> torch.Tensor:
 
 def _render(entry: str, plain, tables, v, eye, *, nl: int, depth: int,
             small: float, atten: float, checker_mats: Tuple[int, int],
-            want_trans: bool, extra_shape: Optional[Tuple[int, ...]] = None,
+            want_trans: bool, bf16: bool = False,
+            extra_shape: Optional[Tuple[int, ...]] = None,
             extra_args: Sequence[float] = (), plain_kw: Optional[dict] = None):
     """Checks the inputs; runs ``plain`` (with ``plain_kw`` too) on CPU
-    tensors, and launches the C entry ``rtfs_<entry>`` on CUDA tensors.
-    With ``extra_shape`` the entry also writes an f32 buffer of that shape
-    (its pointer, then ``extra_args``, follow the common arguments), and
-    (rgb, buffer) is returned."""
+    tensors, and launches the C entry ``rtfs_<entry>`` on CUDA tensors (its
+    bf16 instantiation with ``bf16``).  With ``extra_shape`` the entry also
+    writes an f32 buffer of that shape (its pointer, then ``extra_args``,
+    follow the common arguments), and (rgb, buffer) is returned."""
     _check(tables, v, depth, nl)
     kw = dict(nl=nl, depth=depth, small=small, atten=atten,
-              checker_mats=checker_mats, want_trans=want_trans)
+              checker_mats=checker_mats, want_trans=want_trans, bf16=bf16)
     if v.device.type == "cpu":
         return plain(tables, v, eye, **kw, **(plain_kw or {}))
     if v.device.type != "cuda":
@@ -641,9 +741,9 @@ def _render(entry: str, plain, tables, v, eye, *, nl: int, depth: int,
             tables["mat"].shape[0], nl, v.data_ptr(), out.data_ptr(), P,
             *(float(e) for e in eye), depth, small, atten,
             int(checker_mats[0]), int(checker_mats[1]), int(want_trans),
-            *extra, ctypes.c_void_p(stream))
+            int(bf16), *extra, ctypes.c_void_p(stream))
     cuda_build.check(lib, rc, entry)
-    LAUNCHES[entry] += 1
+    LAUNCHES[launch_key(entry, bf16)] += 1
     return out if buf is None else (out, buf)
 
 
@@ -707,23 +807,35 @@ def render_residuals(tables, v, eye: Sequence[float], *, tree: bool, **kw):
     return img, dict(bi=buf[0], mid=buf[1], lit=buf[2:])
 
 
-def pack_widths(nt: int, ns: int, m: int, nl: int) -> Tuple[float, float]:
-    """Field widths (bw_bi, bw_mid) of the single-plane packed residual: one
-    f32 holds ``(bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid`` exactly (every
-    field a small integer; powers of two, so unpacking multiplies exactly).
-    Raises if the scene exceeds the 2^24 f32 exact-integer budget
-    (render_pallas.py::pack_widths)."""
+def _field_widths(nt: int, ns: int, m: int) -> Tuple[int, int]:
+    """The powers of two (bw_bi, bw_mid) above the id ranges."""
     bw_bi = 1
     while bw_bi < nt + ns + 2:
         bw_bi *= 2
     bw_mid = 1
     while bw_mid < m + 1:
         bw_mid *= 2
-    if bw_bi * bw_mid * (2 ** nl) > 2 ** 24:
+    return bw_bi, bw_mid
+
+
+def pack_fits(nt: int, ns: int, m: int, nl: int) -> bool:
+    """Whether the packed residual of ``pack_widths`` holds the scene."""
+    bw_bi, bw_mid = _field_widths(nt, ns, m)
+    return bw_bi * bw_mid * (2 ** nl) <= 2 ** 24
+
+
+def pack_widths(nt: int, ns: int, m: int, nl: int) -> Tuple[float, float]:
+    """Field widths (bw_bi, bw_mid) of the single-plane packed residual: one
+    f32 holds ``(bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid`` exactly (every
+    field a small integer; powers of two, so unpacking multiplies exactly).
+    Raises if the scene exceeds the 2^24 f32 exact-integer budget
+    (render_pallas.py::pack_widths).  Only K3/K4 (``render_packed``,
+    ``adjoint_packed``) take the pack."""
+    if not pack_fits(nt, ns, m, nl):
         raise ValueError(
             f"packed residual overflows f32 exact integers: "
             f"{nt + ns} primitives x {m} materials x {nl} lights")
-    return float(bw_bi), float(bw_mid)
+    return tuple(float(w) for w in _field_widths(nt, ns, m))
 
 
 def unpack_residuals(pk: torch.Tensor, nl: int,
@@ -750,11 +862,12 @@ def unpack_residuals(pk: torch.Tensor, nl: int,
 
 def render_kwargs(scene: FlatScene, config: RenderConfig) -> dict:
     """The scene- and config-derived keyword arguments of ``render_chain``
-    and ``render_tree``."""
+    and ``render_tree``: ``bf16`` is ``config.bf16_shading``."""
     return dict(nl=scene.num_lights, depth=config.max_depth,
                 small=config.small_number, atten=config.attenuation_factor,
                 checker_mats=scene.checker_mats,
-                want_trans=bool(scene.has_transmission))
+                want_trans=bool(scene.has_transmission),
+                bf16=bool(config.bf16_shading))
 
 
 def render_forward_with_residuals(scene: FlatScene, camera,
@@ -767,11 +880,11 @@ def render_forward_with_residuals(scene: FlatScene, camera,
     Chain-exact scenes take the chain kernel (K = depth+1 levels), the
     others the tree kernel (K = 2^(depth+1)-1 preorder nodes).  ``pts``:
     screen points [H*W,3] in place of the camera's own.  Nothing here is
-    differentiated: the scene and camera are read as constants."""
+    differentiated: the scene and camera are read as constants.  Under
+    ``config.bf16_shading`` the forward is the bf16 one, so the residuals
+    are its topology."""
     if config.samples != 1 or config.force_jitter:
         raise ValueError("residual forward supports exactly one sample")
-    if config.bf16_shading:
-        raise NotImplementedError("bf16_shading has no CUDA kernel yet")
     device = resolve_device(device)
     w, h = config.width, config.height
     with torch.no_grad():
@@ -807,9 +920,9 @@ def render_image_kernel(scene: FlatScene, camera, config: RenderConfig, *,
     package's draws, for per-pixel parity), else by draws from
     ``generator`` (default: seeded with ``config.seed``).  ``adaptive``
     emulates the reference's adaptive supersampler
-    (MySdlApplication.cpp:1294-1311) exactly as the JAX package does."""
-    if config.bf16_shading:
-        raise NotImplementedError("bf16_shading has no CUDA kernel yet")
+    (MySdlApplication.cpp:1294-1311) exactly as the JAX package does.
+    ``config.bf16_shading`` runs the kernels' bf16 instantiations (the
+    any-hit shadow sweep and the Phong blend in bfloat16, ``_PlainOps``)."""
     device = resolve_device(device)
     scene = scene.to(device)
     w, h = config.width, config.height

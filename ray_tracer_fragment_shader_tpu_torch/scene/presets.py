@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..config import CameraConfig, RenderConfig, SQUARE_EDGE_SIZE
 from .builder import SceneBuilder
@@ -160,6 +161,33 @@ def glass_chain(size: int = 128, depth: int = 1,
              .build(dtype=dtype))
     return scene, _cam(size), RenderConfig(width=size, height=size,
                                            max_depth=depth, samples=1)
+
+
+def pack_overflow(size: int = 128, fractional: bool = True,
+                  dtype=np.float32) -> Preset:
+    """BASELINE config 5's 66 primitives lit by 15 lights, depth 1: its
+    packed residual word would need 128 x 128 x 2^15 > 2^24
+    (``kernels/render.py::pack_widths``), so K3/K4 refuse it.  With
+    ``fractional`` its first sphere's material is made fractional
+    (transparency 0.5, refraction 0.9), so the fit takes K6/K7's tree form;
+    without, it is a chain scene for K6/K7's chain form or split mode.  Not
+    a CLI preset."""
+    scene, cam, cfg = procedural_spheres(n=64, size=size, depth=1,
+                                         dtype=dtype)
+    rng = np.random.RandomState(3)
+    pos = rng.uniform(-150.0, 150.0, size=(15, 3)).astype(np.float32)
+    pos[:, 1] = np.abs(pos[:, 1]) + 150.0
+    scene = scene.replace(
+        light_pos=torch.from_numpy(pos).to(scene.light_pos.dtype),
+        light_color=torch.full((15, 3), 0.1, dtype=scene.light_color.dtype))
+    if fractional:
+        m = int(scene.sph_mat[0])
+        trans = scene.mat_transparency.clone()
+        rho = scene.mat_refraction.clone()
+        trans[m], rho[m] = 0.5, 0.9
+        scene = scene.replace(mat_transparency=trans, mat_refraction=rho,
+                              chain_exact=False, has_transmission=True)
+    return scene, cam, cfg
 
 
 PRESETS = {

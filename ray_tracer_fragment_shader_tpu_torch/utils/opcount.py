@@ -27,6 +27,15 @@ data-sheet bound stay as they were); ``cmp`` (float and integer compares,
 a combined ``&&`` of two being one predicate instruction), ``select``,
 ``abs`` (``fabsf``) and ``floor`` (``truncf``) are the instructions it
 leaves out.  A branch, a table load and the loop counters are not counted.
+
+The ``bf16_shading`` forms (tile_ops.cuh's ``tri_hit_bf16``,
+``sph_hit_bf16``, the ray cast of ``occluded_any<true>`` and the bf16
+blend of ``shade``; the ``*_BF16`` units) count each bfloat16 + - * and
+each conversion between f32 and bf16 as one ``basic`` operation: priced
+at the FP32 rate, since the card's bf16 arithmetic measured no faster than
+f32 on scalar chains (P2, PERF.md).  ``BF16_SPLIT`` says how many of a
+unit's ``basic`` are bf16 operations and conversions; the work functions
+return their sums as ``bf16_ops`` and ``cvt_ops``.
 """
 from __future__ import annotations
 
@@ -34,8 +43,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..kernels.render import (_PlainOps, n_tree_nodes, render_packed_ref,
-                              render_tree_ref, unpack_residuals)
+from ..kernels.render import (_PlainOps, n_tree_nodes, render_residuals_ref,
+                              unpack_residuals)
 
 #: H100 SXM peaks (NVIDIA data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -51,6 +60,12 @@ SNELL = 20         # secondary_dirs, transmitted direction (WANT_TRANS)
 SHADE_LIGHT = 56   # shade, one light without its shadow sweep
 CHAIN_STEP = 11    # render_chain.cu child select and throughput
 TREE_PUSH = 12     # render_tree.cu, one pushed child
+# the bf16_shading forms: the f32 unit's operations, some in bf16, plus
+# the conversions (BF16_SPLIT)
+TRI_TEST_BF16 = 62     # tri_hit_bf16
+SPH_TEST_BF16 = 24     # sph_hit_bf16
+SHADE_LIGHT_BF16 = 76  # shade with the bf16 blend, one light
+SWEEP_CAST_BF16 = 9    # occluded_any<true>: the ray cast once per sweep
 # --- adjoint_ops.cuh / adjoint_packed.cu -----------------------------------
 PROLOGUE = 15        # cotangent and squared-error term, per pixel
 PRIMAL = 29          # node_primal, common part
@@ -83,6 +98,14 @@ CLASSES = {
     "SHADE_LIGHT": dict(basic=53, div=1, rsqrt=2, cmp=3, select=4, abs=2),
     "CHAIN_STEP": dict(basic=11, cmp=3, select=7),
     "TREE_PUSH": dict(basic=12, cmp=1),
+    # (BF16_SPLIT) mm's subtraction, product and 1/ndv, sb+tb in f32
+    "TRI_TEST_BF16": dict(basic=61, div=1, cmp=7, select=1, abs=1),
+    # (BF16_SPLIT) disc and the root in f32
+    "SPH_TEST_BF16": dict(basic=23, sqrt=1, cmp=5, select=1),
+    # (BF16_SPLIT) per channel w*L and the += in f32, as SHADE_LIGHT's rest
+    "SHADE_LIGHT_BF16": dict(basic=73, div=1, rsqrt=2, cmp=3, select=4,
+                             abs=2),
+    "SWEEP_CAST_BF16": dict(basic=9),
     "PROLOGUE": dict(basic=15, cmp=3),
     # safe_sqrt(|v|^2), safe_recip(|v|), the kind compare
     "PRIMAL": dict(basic=27, sqrt=1, div=1, cmp=3, select=2),
@@ -102,6 +125,21 @@ CLASSES = {
 }
 #: the classes that make up a unit's count
 COUNTED = ("basic", "div", "sqrt", "rsqrt")
+#: of each bf16 unit's ``basic``: bfloat16 + - * (``bf16``) and conversions
+#: between f32 and bf16 (``cvt``)
+BF16_SPLIT = {
+    # the dot products, hit point and barycentrics (37); 16 table scalars
+    # and mm cast to bf16, ndv, ndo, sb and tb back (21)
+    "TRI_TEST_BF16": dict(bf16=37, cvt=21),
+    # the offsets and two dot products (13); 3 table scalars cast, ud and
+    # |d|^2 back (5)
+    "SPH_TEST_BF16": dict(bf16=13, cvt=5),
+    # per channel the blend's 6 (18); ndots, udotr and per channel 5
+    # operands cast, the product back (20)
+    "SHADE_LIGHT_BF16": dict(bf16=18, cvt=20),
+    # origin, direction and unit direction (9)
+    "SWEEP_CAST_BF16": dict(cvt=9),
+}
 
 
 def _price(units: Dict[str, int]) -> Tuple[float, Dict[str, float]]:
@@ -113,6 +151,13 @@ def _price(units: Dict[str, int]) -> Tuple[float, Dict[str, float]]:
         for k, c in CLASSES[u].items():
             classes[k] = classes.get(k, 0.0) + float(n * c)
     return float(ops), classes
+
+
+def bf16_split(units: Dict[str, int]) -> Dict[str, float]:
+    """``bf16_ops`` and ``cvt_ops`` of ``units`` (``BF16_SPLIT``)."""
+    return {f"{k}_ops": float(sum(n * BF16_SPLIT.get(u, {}).get(k, 0)
+                                  for u, n in units.items()))
+            for k in ("bf16", "cvt")}
 
 
 def _add(units: Dict[str, int], **counts) -> Dict[str, int]:
@@ -130,15 +175,27 @@ def bound_ms(ops: float, nbytes: float) -> Tuple[float, str]:
 
 
 def _shadow_tests(ops: _PlainOps, px, py, pz, bi, hitm, light,
-                  any_hit: bool) -> Tuple[int, int]:
+                  any_hit: bool) -> Tuple[int, int, int]:
     """(triangle, sphere) tests of one light's shadow sweep over the hit
-    lanes: up to the first occluder for the any-hit sweep, all of them for
-    the nearest-occluder sweep."""
+    lanes: up to the first occluder for the any-hit sweep (its bf16 form
+    under ``ops.bf16``), all of them for the nearest-occluder sweep; and
+    the number of any-hit sweeps run."""
     svx, svy, svz = light[0] - px, light[1] - py, light[2] - pz
     vlen2 = svx * svx + svy * svy + svz * svz
     ok = hitm & (vlen2 > 0.0)
     inv = torch.rsqrt(torch.where(ok, vlen2, 1.0))
     ux, uy, uz = svx * inv, svy * inv, svz * inv
+    if any_hit and ops.bf16:
+        ob = tuple(x.bfloat16() for x in (px, py, pz))
+        vb = tuple(x.bfloat16() for x in (svx, svy, svz))
+        ub = tuple(x.bfloat16() for x in (ux, uy, uz))
+        tri_hit = lambda i: ops._tri_hit_bf16(i, ob, vb, ok, bi)
+        sph_hit = lambda i: ops._sph_hit_bf16(i, ob, ub, ok, bi)
+    else:
+        tri_hit = lambda i: ops._tri_hit(i, px, py, pz, svx, svy, svz, ok,
+                                         bi)[0]
+        sph_hit = lambda i: ops._sph_hit(i, px, py, pz, ux, uy, uz, ok,
+                                         bi)[0]
     found = torch.zeros_like(ok)
     n_tri = n_sph = 0
     for i in range(ops.nt):
@@ -146,34 +203,36 @@ def _shadow_tests(ops: _PlainOps, px, py, pz, bi, hitm, light,
             active = ok & ~found & (bi != float(i))
             n_tri += int(active.sum())
             if any_hit:
-                found |= active & ops._tri_hit(i, px, py, pz, svx, svy, svz,
-                                               ok, bi)[0]
+                found |= active & tri_hit(i)
     for i in range(ops.ns):
         if ops.sph[i][5] > 0.5:
             active = ok & ~found & (bi != float(i + ops.nt))
             n_sph += int(active.sum())
             if any_hit:
-                found |= active & ops._sph_hit(i, px, py, pz, ux, uy, uz, ok,
-                                               bi)[0]
-    return n_tri, n_sph
+                found |= active & sph_hit(i)
+    return n_tri, n_sph, int(ok.sum()) if any_hit else 0
 
 
 def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
                  residuals: bool = False, nl: int, depth: int, small: float,
-                 atten: float, checker_mats,
-                 want_trans: bool) -> Dict[str, float]:
+                 atten: float, checker_mats, want_trans: bool,
+                 bf16: bool = False) -> Dict[str, float]:
     """FP32 operations and bytes of one chain (``tree=False``) or tree
     kernel call on [P,3] primary directions ``v`` — what
-    csrc/render_chain.cu or render_tree.cu runs on these inputs.
-    ``packed`` adds the packed plane's bytes (4 per level), ``residuals``
-    the unpacked planes' ((2+nl)*4 per level or preorder node), written for
-    every pixel; neither adds operations."""
+    csrc/render_chain.cu or render_tree.cu runs on these inputs, in its
+    bf16_shading form with ``bf16``.  ``packed`` adds the packed plane's
+    bytes (4 per level), ``residuals`` the unpacked planes' ((2+nl)*4 per
+    level or preorder node), written for every pixel; neither adds
+    operations."""
     P = v.shape[0]
     ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
-                    checker_mats=checker_mats, all_opaque=not want_trans)
+                    checker_mats=checker_mats, all_opaque=not want_trans,
+                    bf16=bf16)
     n_tri_ok = sum(1 for t in ops.tri if t[19] > 0.5)
     n_sph_ok = sum(1 for s in ops.sph if s[5] > 0.5)
-    work = dict(visits=0, hits=0, tri_tests=0, sph_tests=0)
+    # the shadow tests apart: their bf16 form under bf16 and any-hit
+    work = dict(visits=0, hits=0, tri_tests=0, sph_tests=0,
+                shadow_tri_tests=0, shadow_sph_tests=0, any_hit_sweeps=0)
 
     def visit(o, d, excl, alive, thr, col):
         """One trace_node over the ``alive`` lanes."""
@@ -187,9 +246,10 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
         hitm, bi, p = out[0], out[1], out[2]
         work["hits"] += int(hitm.sum())
         for light in ops.light:
-            t, s = _shadow_tests(ops, *p, bi, hitm, light, not want_trans)
-            work["tri_tests"] += t
-            work["sph_tests"] += s
+            t, s, n = _shadow_tests(ops, *p, bi, hitm, light, not want_trans)
+            work["shadow_tri_tests"] += t
+            work["shadow_sph_tests"] += s
+            work["any_hit_sweeps"] += n
         return out
 
     one = ops.full(1.0)
@@ -219,16 +279,23 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
                     node(p, tuple(x * gate for x in dd), bi, child, level + 1)
         node(o, d, ops.full(-1.0), alive, 0)
     hits = work["hits"]
+    sweep_bf16 = bf16 and not want_trans
+    b = "_BF16" if sweep_bf16 else ""
     units = _add({}, RAY_SETUP=work["visits"], TRI_TEST=work["tri_tests"],
                  SPH_TEST=work["sph_tests"], HIT_ATTRS=hits, DIRS=hits,
-                 SNELL=hits if want_trans else 0, SHADE_LIGHT=nl * hits,
+                 SNELL=hits if want_trans else 0,
                  **{"TREE_PUSH" if tree else "CHAIN_STEP": hits})
+    _add(units, **{"TRI_TEST" + b: work["shadow_tri_tests"],
+                   "SPH_TEST" + b: work["shadow_sph_tests"],
+                   "SHADE_LIGHT_BF16" if bf16 else "SHADE_LIGHT": nl * hits,
+                   "SWEEP_CAST_BF16": work["any_hit_sweeps"] if sweep_bf16
+                   else 0})
     flops, classes = _price(units)
     K = n_tree_nodes(depth) if tree else depth + 1
     nbytes = (P * 24 + (P * 4 * (depth + 1) if packed else 0)
               + (P * 4 * (2 + nl) * K if residuals else 0))
     return dict(work, ops=flops, classes=classes, units=units,
-                bytes=float(nbytes))
+                bytes=float(nbytes), **bf16_split(units))
 
 
 def _chain_adjoint_ops(bi, lit, g_live, *, nt: int, depth: int,
@@ -335,7 +402,7 @@ def _ncols(tables, nl: int) -> int:
         + 3 * nl
 
 
-def fused_work(tables, v, eye, *, tree: bool, pack, target=None, mask=None,
+def fused_work(tables, v, eye, *, tree: bool, target=None, mask=None,
                g=None, **kw) -> Dict[str, float]:
     """FP32 operations and bytes of one csrc/adjoint_fused.cu call on these
     inputs: K6 (``target`` and ``mask`` given) or K7 (the cotangent ``g``
@@ -352,11 +419,7 @@ def fused_work(tables, v, eye, *, tree: bool, pack, target=None, mask=None,
     live = (g != 0.0).any(-1) if g is not None else None
     vf = v if g is None else v[live]
     fwd = forward_work(tables, vf, eye, tree=tree, **kw)
-    if tree:
-        img, res = render_tree_ref(tables, vf, eye, residuals=True, **kw)
-    else:
-        img, pk = render_packed_ref(tables, vf, eye, pack=pack, **kw)
-        res = unpack_residuals(pk, nl, pack)
+    img, res = render_residuals_ref(tables, vf, eye, tree=tree, **kw)
     units = dict(fwd["units"])
     if g is None:
         live = ((img - target) * mask[:, None] != 0.0).any(-1)
@@ -450,14 +513,13 @@ def step_work(scene, camera, config, target=None, *, mode: str = "twophase",
                     kernels=["render_packed", "adjoint_packed"],
                     launch=launch)
     if mode == "fused":
-        w6 = fused_work(t, v, eye, tree=tree, pack=akw["pack"], target=tgt,
-                        mask=mask, **kw)
+        w6 = fused_work(t, v, eye, tree=tree, target=tgt, mask=mask, **kw)
         bwd = {k: c - w6["classes_fwd"].get(k, 0.0)
                for k, c in w6["classes"].items()}
         return dict(fwd=w6["classes_fwd"], bwd=bwd,
                     kernels=["fused_adjoint"],
                     launch=lambda: AF.fused_adjoint(
-                        t, v, eye, tgt, mask, tree=tree, pack=akw["pack"],
+                        t, v, eye, tgt, mask, tree=tree,
                         g_scale=akw["g_scale"], **kw))
     if mode != "split":
         raise ValueError(f"unknown fit mode {mode!r}")

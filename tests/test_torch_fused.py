@@ -281,10 +281,9 @@ def test_fused_wrapper_equals_its_plain_version_on_the_cpu():
     args = (tables, prep["v"], prep["eye"], prep["target"] * 0.9,
             prep["mask"])
     K.reset_launch_counts()
-    got = AF.fused_adjoint(*args, tree=True, pack=akw["pack"],
-                           g_scale=akw["g_scale"], **kw)
-    ref = AF.fused_adjoint_ref(*args, tree=True, pack=akw["pack"],
-                               g_scale=akw["g_scale"], **kw)
+    got = AF.fused_adjoint(*args, tree=True, g_scale=akw["g_scale"], **kw)
+    ref = AF.fused_adjoint_ref(*args, tree=True, g_scale=akw["g_scale"],
+                               **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert float(got[0]) > 0 and all(n == 0 for n in K.LAUNCHES.values())
 
@@ -510,10 +509,12 @@ def test_fit_step_with_a_jittered_config_raises_as_jax_does():
 def test_tree_depth_above_the_cap_raises():
     scene, camera, cfg = port_fractional(AF.TREE_ADJOINT_MAX_DEPTH + 1)
     target = torch.zeros(SIZE, SIZE, 3)
-    with pytest.raises(ValueError, match="tree depth <= 5"):
+    cap = (f"tree depth <= {AF.TREE_ADJOINT_MAX_DEPTH} .* B of local "
+           f"memory")
+    with pytest.raises(ValueError, match=cap):
         AF.fit_value_and_grad(FitParams.from_scene(scene), scene, camera, cfg,
                               target, device=CPU)
-    with pytest.raises(ValueError, match="tree depth <= 5"):
+    with pytest.raises(ValueError, match=cap):
         AF.recompute_grads_kernel(scene, camera, cfg, target, device=CPU)
 
 

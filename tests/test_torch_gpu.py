@@ -257,7 +257,7 @@ def test_fused_kernel_matches_plain_and_is_deterministic(cuda, name):
     from ray_tracer_fragment_shader_tpu_torch.kernels import (
         adjoint_fused as AF)
     tables, v, eye, kw, target, mask, akw, tree = fused_case(name, cuda)
-    kw6 = dict(tree=tree, pack=akw["pack"], g_scale=akw["g_scale"], **kw)
+    kw6 = dict(tree=tree, g_scale=akw["g_scale"], **kw)
     before = K.LAUNCHES["fused_adjoint"]
     a = AF.fused_adjoint(tables, v, eye, target, mask, **kw6)
     b = AF.fused_adjoint(tables, v, eye, target, mask, **kw6)
@@ -284,7 +284,7 @@ def test_recompute_kernel_matches_plain_and_is_deterministic(cuda, name):
     tables, v, eye, kw, target, _, akw, tree = fused_case(name, cuda)
     render = K.render_tree if tree else K.render_chain
     g = (akw["g_scale"] * (render(tables, v, eye, **kw) - target)).contiguous()
-    kw7 = dict(tree=tree, pack=akw["pack"], **kw)
+    kw7 = dict(tree=tree, **kw)
     before = K.LAUNCHES["recompute_adjoint"]
     a = AF.recompute_adjoint(tables, v, eye, g, **kw7)
     b = AF.recompute_adjoint(tables, v, eye, g, **kw7)
@@ -301,13 +301,12 @@ def test_fused_wrappers_refuse_other_devices(cuda):
         "fractional_glass", cuda)
     with pytest.raises(ValueError, match="mask must be"):
         AF.fused_adjoint(tables, v, eye, target, mask.cpu(), tree=tree,
-                         pack=akw["pack"], g_scale=akw["g_scale"], **kw)
+                         g_scale=akw["g_scale"], **kw)
     with pytest.raises(ValueError, match="g must be"):
-        AF.recompute_adjoint(tables, v, eye, target.cpu(), tree=tree,
-                             pack=akw["pack"], **kw)
+        AF.recompute_adjoint(tables, v, eye, target.cpu(), tree=tree, **kw)
     with pytest.raises(ValueError, match="table"):
         AF.recompute_adjoint({k: t.cpu() for k, t in tables.items()}, v, eye,
-                             target, tree=tree, pack=akw["pack"], **kw)
+                             target, tree=tree, **kw)
 
 
 def test_tree_and_sampled_fits_run_on_the_card_by_default(cuda):
@@ -495,3 +494,153 @@ def test_bench_runs_on_the_card_by_default(cuda, monkeypatch, capsys):
     assert out["device"] == torch.cuda.get_device_name(0)
     assert 0 < out["vs_baseline"] <= 1.05
     assert out["mix_rate_ops_per_s"] > 0
+
+
+# ---- bf16_shading and the unpacked K6/K7 ---------------------------------
+
+BF16_SCENES = dict(
+    full_reflective=lambda: presets.full_reflective(size=N, depth=3),
+    glass_chain=lambda: presets.glass_chain(size=N, depth=3),
+    fractional_glass=lambda: presets.fractional_glass(size=N, depth=3))
+
+
+def bf16_case(name):
+    scene, cam, cfg = BF16_SCENES[name]()
+    return scene, cam, dataclasses.replace(cfg, bf16_shading=True)
+
+
+@pytest.mark.parametrize("name", list(BF16_SCENES))
+def test_bf16_forwards_match_plain_and_are_deterministic(cuda, name):
+    """The bf16 instantiations of K2, K5, K3 and the residual forwards:
+    each its plain version's image (phase 2's budget) and, for the packed
+    and residual forms, its planes; two launches bit-identical."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    scene, cam, cfg = bf16_case(name)
+    tables, v, eye, kw = inputs(scene, cam, cfg, cuda)
+    assert kw["bf16"]
+    tree = not scene.chain_exact
+    before = dict(K.LAUNCHES)
+    render = K.render_tree if tree else K.render_chain
+    a, b = render(tables, v, eye, **kw), render(tables, v, eye, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    ref = (K.render_tree_ref if tree else K.render_chain_ref)(tables, v, eye,
+                                                              **kw)
+    assert_close_frac(ref, a, 0.01)
+    key = K.launch_key("render_tree" if tree else "render_chain", True)
+    assert K.LAUNCHES[key] == before[key] + 2
+    img, res = K.render_residuals(tables, v, eye, tree=tree, **kw)
+    img_ref, res_ref = K.render_residuals_ref(tables, v, eye, tree=tree,
+                                              **kw)
+    assert_close_frac(img_ref, img, 0.01)
+    assert all(torch.equal(res[k], res_ref[k]) for k in res)
+    if not tree:
+        pack = AF.kernel_inputs(scene, cfg, N * N, device=cuda)[3]["pack"]
+        img, pk = K.render_packed(tables, v, eye, pack=pack, **kw)
+        img_ref, pk_ref = K.render_packed_ref(tables, v, eye, pack=pack,
+                                              **kw)
+        assert_close_frac(img_ref, img, 0.01)
+        assert (pk != pk_ref).float().mean().item() <= 0.01
+    # the variant ran: its image is not the f32 kernel's
+    f32 = render(tables, v, eye, **dict(kw, bf16=False))
+    assert ((a - f32).abs().amax(-1) > 1e-3).float().mean().item() > 0.01
+
+
+@pytest.mark.parametrize("name", list(BF16_SCENES))
+def test_bf16_fused_and_recompute_match_plain_and_k3k4(cuda, name):
+    """K6 and K7 with the bf16 forward: two launches bit-identical, tables
+    within 1e-3 of max|plain|; on chain scenes K6 equals K3 + K4 in bf16."""
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import FitParams
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    scene, cam, cfg = bf16_case(name)
+    camera = Camera.from_config(cam, N, N, device=cuda)
+    target = K.render_image_kernel(scene, camera, cfg, device=cuda)
+    params = FitParams.from_scene(scene)
+    with torch.no_grad():
+        params.sph_center += 1.5
+    prep = AF.prepare_fit_inputs(camera, cfg, target, device=cuda)
+    sc, tables, kw, akw = AF.kernel_inputs(params.into_scene(scene), cfg,
+                                           N * N, device=cuda)
+    tree = not sc.chain_exact
+    args = (tables, prep["v"], prep["eye"], prep["target"], prep["mask"])
+    kw6 = dict(tree=tree, g_scale=akw["g_scale"], **kw)
+    before = K.LAUNCHES["fused_adjoint_bf16"]
+    a = AF.fused_adjoint(*args, **kw6)
+    b = AF.fused_adjoint(*args, **kw6)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_adjoint_bf16"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref = AF.fused_adjoint_ref(*args, **kw6)
+    assert a[0].item() == pytest.approx(ref[0].item(), rel=1e-5)
+    assert_tables_close(a[1:], ref[1:])
+    if not tree:
+        img, pk = K.render_packed(tables, prep["v"], prep["eye"],
+                                  pack=akw["pack"], **kw)
+        q = AF.adjoint_packed(tables, prep["v"], prep["eye"], img,
+                              prep["target"], prep["mask"], pk, **akw)
+        assert a[0].item() == pytest.approx(q[0].item(), rel=1e-5)
+        assert_tables_close(a[1:], q[1:])
+    render = K.render_tree if tree else K.render_chain
+    g = (akw["g_scale"] * (render(tables, prep["v"], prep["eye"], **kw)
+                           - prep["target"])).contiguous()
+    c = AF.recompute_adjoint(tables, prep["v"], prep["eye"], g, tree=tree,
+                             **kw)
+    d = AF.recompute_adjoint(tables, prep["v"], prep["eye"], g, tree=tree,
+                             **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(c, d))
+    assert_tables_close(c, AF.recompute_adjoint_ref(
+        tables, prep["v"], prep["eye"], g, tree=tree, **kw))
+
+
+@pytest.mark.parametrize("name", ["overflow_fractional", "tree_depth_cap",
+                                  "tree_depth_cap_bf16"])
+def test_unpacked_k6_k7_past_the_pack_and_the_old_depth_cap(cuda, name):
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    if name == "overflow_fractional":
+        scene, cam, cfg = presets.pack_overflow(size=N)
+    else:
+        scene, cam, cfg = presets.fractional_glass(
+            size=N, depth=AF.TREE_ADJOINT_MAX_DEPTH)
+        cfg = dataclasses.replace(cfg, bf16_shading=name.endswith("bf16"))
+    camera = Camera.from_config(cam, N, N, device=cuda)
+    target = K.render_image_kernel(scene, camera, cfg, device=cuda) * 0.9
+    prep = AF.prepare_fit_inputs(camera, cfg, target, device=cuda)
+    sc, tables, kw, akw = AF.kernel_inputs(scene, cfg, N * N, device=cuda)
+    assert not sc.chain_exact
+    args = (tables, prep["v"], prep["eye"], prep["target"], prep["mask"])
+    kw6 = dict(tree=True, g_scale=akw["g_scale"], **kw)
+    a = AF.fused_adjoint(*args, **kw6)
+    b = AF.fused_adjoint(*args, **kw6)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref = AF.fused_adjoint_ref(*args, **kw6)
+    assert a[0].item() == pytest.approx(ref[0].item(), rel=1e-5)
+    assert_tables_close(a[1:], ref[1:])
+    g = (akw["g_scale"] * (K.render_tree(tables, prep["v"], prep["eye"],
+                                         **kw) - prep["target"]))
+    g = g.contiguous()
+    c = AF.recompute_adjoint(tables, prep["v"], prep["eye"], g, tree=True,
+                             **kw)
+    assert_tables_close(c, AF.recompute_adjoint_ref(
+        tables, prep["v"], prep["eye"], g, tree=True, **kw))
+
+
+def test_bf16_entry_points_run_on_the_card_by_default(cuda):
+    from ray_tracer_fragment_shader_tpu_torch import (FitParams,
+                                                      fit_value_and_grad)
+    scene, cam, cfg = bf16_case("full_reflective")
+    camera = Camera.from_config(cam, N, N)
+    K.reset_launch_counts()
+    target = K.render_image_kernel(scene, camera, cfg)
+    params = FitParams.from_scene(scene).to(cuda)
+    loss, grads = fit_value_and_grad(params, scene, camera, cfg, target)
+    torch.cuda.synchronize()
+    assert target.is_cuda and loss.is_cuda
+    assert K.LAUNCHES["render_chain_bf16"] == 1
+    assert K.LAUNCHES["render_packed_bf16"] == 1
+    assert K.LAUNCHES["render_chain"] == K.LAUNCHES["render_packed"] == 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())

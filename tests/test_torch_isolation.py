@@ -148,3 +148,44 @@ def test_bench_and_probes_import_no_jax_and_have_no_fallback():
     # built as the kernels they price: no fused multiply-add
     for name in cuda_build.PROBE_SOURCES:
         assert cuda_build.SOURCE_FLAGS[name] == ("-fmad=false",), name
+
+
+def test_bf16_variant_sources_entries_and_ab_script():
+    """The bf16_shading variants are instantiations of the listed sources,
+    each built with -fmad=false (so each bf16 multiply and add rounds
+    alone, as the plain version's); every render and one-dispatch fit
+    entry takes the ``bf16`` flag; bf16_ab.py imports no JAX and holds no
+    try/except."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import cuda_build
+    for name in cuda_build.SOURCES:
+        if name.endswith(".cu"):
+            assert cuda_build.SOURCE_FLAGS[name] == ("-fmad=false",), name
+    csrc = os.path.join(PORT_DIR, "kernels", "csrc")
+    for name, entries in (("render_chain.cu", ("rtfs_render_chain",
+                                               "rtfs_render_packed",
+                                               "rtfs_render_chain_residuals")),
+                          ("render_tree.cu", ("rtfs_render_tree",
+                                              "rtfs_render_tree_residuals")),
+                          ("adjoint_fused.cu", ("rtfs_fused_adjoint",
+                                                "rtfs_recompute_adjoint"))):
+        with open(os.path.join(csrc, name)) as f:
+            src = f.read()
+        assert "BF16" in src, name
+        for entry in entries:
+            sig = re.search(rf'extern "C" int {entry}\((.*?)\)', src, re.S)
+            assert sig and re.search(r"\bint bf16\b", sig.group(1)), entry
+    with open(os.path.join(csrc, "tile_ops.cuh")) as f:
+        src = f.read()
+    # each bf16 operation through an intrinsic that is never contracted
+    assert "__hfma" not in src and "__hmul_rn" in src and "__hadd_rn" in src
+    code = ("import sys\n"
+            "import ray_tracer_fragment_shader_tpu_torch.bf16_ab\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'ray_tracer_fragment_shader_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+    with open(os.path.join(PORT_DIR, "bf16_ab.py")) as f:
+        assert not re.search(r"^\s*(try\s*:|except\b)", f.read(), re.M)

@@ -192,7 +192,12 @@ def test_cpu_tensors_never_launch_kernels():
                           "render_tree_residuals": 0, "adjoint_packed": 0,
                           "fused_adjoint": 0, "recompute_adjoint": 0,
                           "fit_grads": 0, "mix_chain": 0, "op_chain": 0,
-                          "bf16_chain": 0}
+                          "bf16_chain": 0, "render_chain_bf16": 0,
+                          "render_tree_bf16": 0, "render_packed_bf16": 0,
+                          "render_chain_residuals_bf16": 0,
+                          "render_tree_residuals_bf16": 0,
+                          "fused_adjoint_bf16": 0,
+                          "recompute_adjoint_bf16": 0}
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
@@ -223,8 +228,11 @@ def test_wrappers_check_their_inputs():
                       v, eye, **kw)
     with pytest.raises(ValueError, match="TREE_MAX_DEPTH"):
         K.render_tree(tables, v, eye, **dict(kw, depth=K.TREE_MAX_DEPTH + 1))
-    with pytest.raises(NotImplementedError):
-        scene, cam, cfg = tpresets.single_sphere(size=8)
-        K.render_image_kernel(scene, cam,
-                              dataclasses.replace(cfg, bf16_shading=True),
-                              device="cpu")
+    # bf16_shading runs (it raised before its kernels were ported)
+    scene, cam, cfg = tpresets.single_sphere(size=8)
+    K.reset_launch_counts()
+    img = K.render_image_kernel(scene, cam,
+                                dataclasses.replace(cfg, bf16_shading=True),
+                                device="cpu")
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    assert all(n == 0 for n in K.LAUNCHES.values())

@@ -127,9 +127,8 @@ def _counted(work):
 def test_class_counts_sum_to_the_operation_counts(name, make):
     t, v, eye, kw, akw, prep, tree = _inputs(make())
     works = [opcount.forward_work(t, v, eye, tree=tree, **kw),
-             opcount.fused_work(t, v, eye, tree=tree, pack=akw["pack"],
-                                target=prep["target"], mask=prep["mask"],
-                                **kw)]
+             opcount.fused_work(t, v, eye, tree=tree, target=prep["target"],
+                                mask=prep["mask"], **kw)]
     if not tree:
         img, pk = K.render_packed(t, v, eye, pack=akw["pack"], **kw)
         works.append(opcount.adjoint_work(
