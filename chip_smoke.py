@@ -119,10 +119,9 @@ Phases (each raises on failure; the script then exits non-zero):
    that and its bytes' time).
 14. ``bf16_shading`` and the unpacked K6/K7 (``bf16_phase``): K6/K7's
    local memory per tree depth cap (ptxas) and what it reserves for the
-   card's resident threads; the toolkit's words on __hmul_rn/__hadd_rn/
-   __hsub_rn and the SASS census of the library's bf16 HFMA2 (none may
-   fuse a multiply and an add); at 128^2 each bf16 kernel (K2, K3, K5,
-   the residual K2/K5, K6 and K7, chain and tree) against its plain
+   card's resident threads; the SASS census of the library's bf16 HFMA2
+   (none may fuse a multiply and an add); at 128^2 each bf16 kernel (K2,
+   K3, K5, the residual K2/K5, K6 and K7, chain and tree) against its plain
    version (phase 2's budget, planes equal), K6/K7 twice bit-identical
    within 1e-3 of max|plain| and K6 against K3+K4 in bf16 (bit-equality
    printed); K6/K7 in f32 on ``presets.pack_overflow`` (past the 2^24
@@ -240,8 +239,6 @@ BF16_ROWS = {f"{k}_bf16": k for k in (
     "render_tree_residuals", "fused_adjoint", "recompute_adjoint")}
 BF16_CODE = ("ray_tracer_fragment_shader_tpu/kernels/render_pallas.py"
              ":310-371,540-555")
-#: threads an H100 SM holds, for each of which CUDA reserves local memory
-THREADS_PER_SM = 2048
 
 
 def check(cond, msg):
@@ -272,10 +269,12 @@ def rel_err(got, ref):
 def fit_inputs(K, AF, dev, preset, dc=1.5, params=None):
     """The fit kernels' inputs on scene ``preset`` with its sphere centres
     moved by ``dc`` (or with ``params``): the tables, rays, target, mask and
-    keywords of ``AF.kernel_inputs``, ``tree`` (the scene is not
-    chain-exact), the parameters, camera and config; on chain scenes also
-    the packed kernel's image and residuals (img, pk).  The target is the
-    unperturbed scene's kernel render."""
+    keywords of ``AF.scene_tables``, ``tree`` (the scene is not
+    chain-exact), the parameters, camera and config; ``akw``, the adjoint's
+    keywords of ``AF.kernel_inputs`` on chain scenes, only the cotangent
+    scale on tree scenes (they take K6/K7, which need no pack); on chain
+    scenes also the packed kernel's image and residuals (img, pk).  The
+    target is the unperturbed scene's kernel render."""
     import torch
     from ray_tracer_fragment_shader_tpu_torch.diff.fit import FitParams
     from ray_tracer_fragment_shader_tpu_torch.ops.rays import Camera
@@ -288,10 +287,13 @@ def fit_inputs(K, AF, dev, preset, dc=1.5, params=None):
             params.sph_center += dc
     prep = AF.prepare_fit_inputs(camera, cfg, target, device=dev)
     v, eye = prep["v"], prep["eye"]
-    scene_c, tables, kw, akw = AF.kernel_inputs(params.into_scene(scene), cfg,
-                                                v.shape[0], device=dev)
+    scene_c, tables, kw = AF.scene_tables(params.into_scene(scene), cfg, dev)
+    tree = not scene_c.chain_exact
+    akw = (dict(g_scale=2.0 / (v.shape[0] * 3)) if tree else
+           AF.kernel_inputs(params.into_scene(scene), cfg, v.shape[0],
+                            device=dev)[3])
     x = dict(tables=tables, v=v, eye=eye, kw=kw, target=prep["target"],
-             mask=prep["mask"], akw=akw, tree=not scene_c.chain_exact,
+             mask=prep["mask"], akw=akw, tree=tree,
              scene=scene, scene_c=scene_c, params=params, camera=camera,
              cfg=cfg)
     if not x["tree"]:
@@ -468,23 +470,6 @@ def bf16_fma_census(library: str):
     return out
 
 
-def bf16_rn_docs():
-    """{intrinsic: the sentence of the toolkit's cuda_bf16.h that documents
-    its rounding} for the __hmul_rn/__hadd_rn/__hsub_rn the bf16 forms
-    use."""
-    import re
-    from torch.utils.cpp_extension import CUDA_HOME
-    with open(os.path.join(CUDA_HOME or "", "include", "cuda_bf16.h")) as f:
-        src = f.read()
-    out = {}
-    for name in ("__hmul_rn", "__hadd_rn", "__hsub_rn"):
-        i = src.find(f"{name}(const __nv_bfloat16 ")
-        block = src[max(i - 1500, 0):i] if i >= 0 else ""
-        m = re.findall(r"[^.*]*contraction[^.]*\.", block)
-        out[name] = " ".join(m[-1].split()) if m else "not documented"
-    return out
-
-
 def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
     """Phase 14: the bf16_shading variants and the unpacked K6/K7.  Fills
     ``launches``, ``errs``, ``fracs``, ``times``, ``bounds`` and ``k9`` for
@@ -518,8 +503,7 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
 
     # -- the build: K6/K7's local memory at each depth cap, no fused bf16
     frames = fused_stack_frames(cuda_build.build_info.get("log", ""))
-    props = torch.cuda.get_device_properties(dev)
-    resident = props.multi_processor_count * THREADS_PER_SM
+    resident = AF.resident_threads(dev)
     for (tree, bf16, cap), b in sorted(frames.items()):
         print(f"ptxas fused_adjoint_kernel tree={tree} bf16={bf16}"
               + (f" cap={cap}" if tree else "") + f": {b} B stack frame "
@@ -530,8 +514,6 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
         check(caps == list(AF.TREE_ADJOINT_DEPTH_CAPS),
               f"tree caps built {caps}, the wrapper's "
               f"{AF.TREE_ADJOINT_DEPTH_CAPS}")
-    for name, doc in bf16_rn_docs().items():
-        print(f"cuda_bf16.h {name}: {doc}")
     census = bf16_fma_census(cuda_build.build_info["path"])
     print(f"SASS bf16 HFMA2 of the kernel library: {census} (fused must be "
           f"0)")
@@ -636,9 +618,6 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
              presets.fractional_glass(size=n, depth=deep)),
             (f"fractional_glass d{deep} bf16",
              bf(presets.fractional_glass(size=n, depth=deep)))):
-        sc = K.compact_scene(preset[0])
-        counts = (K.pack_scene(sc)["tri"].shape[0], sc.num_spheres,
-                  sc.num_materials, sc.num_lights)
         x = fit_inputs(K, AF, dev, preset)
         args, kw6 = fused_args(x)
         a = twice(lambda: AF.fused_adjoint(*args, **kw6), "fused_adjoint",
@@ -650,8 +629,7 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
                   "recompute_adjoint", label)
         hold_grads("recompute_adjoint", f"{label} (A1)", b,
                    AF.recompute_adjoint_ref(*args7, **kw7))
-        print(f"A1 {label}: tree {x['tree']}, depth {x['kw']['depth']}, "
-              f"pack fits: {K.pack_fits(*counts)}")
+        print(f"A1 {label}: tree {x['tree']}, depth {x['kw']['depth']}")
         del x, a, b, args, args7
     args, kw6 = fused_args(fit_inputs(
         K, AF, dev, presets.fractional_glass(size=16, depth=deep + 1)))
@@ -888,7 +866,7 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
         tp = (tp1 + time_ms(plain, 1)) / 2
         tk, t32 = sum(tk) / 2, sum(t32) / 2
         w = work_fn()
-        b = opcount.bound_ms(w["ops"], w["bytes"])
+        b = opcount.bound_ms(w["ops"], w["bytes"], w["bf16_ops"])
         f32 = BF16_ROWS[kname]
         rate = k9[f32]["k9_rate_ops_per_s"]
         t_ops = RL.flat_slots(w["classes"]) / rate * 1e3
@@ -904,8 +882,8 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
               f"kernel on the same inputs {t32:.4f} ms (bf16/f32 "
               f"{tk / t32:.4f}); plain {tp:.2f} ms; bound {b[0]:.5f} ms "
               f"({b[1]}: {w['ops']:.4g} ops of which {w['bf16_ops']:.4g} "
-              f"bf16 and {w['cvt_ops']:.4g} conversions, {w['bytes']:.4g} "
-              f"B); at K9's {FAMILY[f32]} rate {rate / 1e12:.4f} T: "
+              f"bf16 at twice the FP32 rate, {w['bytes']:.4g} B); at K9's "
+              f"{FAMILY[f32]} rate {rate / 1e12:.4f} T: "
               f"{k9[kname]['k9_bound_ms']:.5f} ms ({k9[kname]['k9_bound_by']}"
               f") [{card}]")
     del x, xt, args, args7, timed

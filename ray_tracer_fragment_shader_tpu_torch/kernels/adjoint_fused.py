@@ -52,7 +52,7 @@ from ..scene.flat import FlatScene
 from .adjoint import replay_chain, replay_tree
 from .render import (LAUNCHES, SMEM_LIMIT_BYTES, _check, _flat_tables,
                      adaptive_step, compact_scene, jitter_source, launch_key,
-                     pack_fits, pack_scene, pack_widths, render_chain,
+                     pack_scene, pack_widths, render_chain,
                      render_forward_with_residuals, render_kwargs,
                      render_packed, render_residuals_ref, render_tree,
                      resolve_device, unpack_residuals)
@@ -76,9 +76,6 @@ TREE_ADJOINT_DEPTH_CAPS = (5, 6)
 TREE_ADJOINT_MAX_DEPTH = TREE_ADJOINT_DEPTH_CAPS[-1]
 #: threads a block of the adjoint kernels (csrc/adjoint_ops.cuh::kAdjThreads)
 ADJOINT_THREADS = 256
-#: threads an H100 holds at once (132 SMs x 2048), for each of which CUDA
-#: reserves a kernel's local memory
-RESIDENT_THREADS = 132 * 2048
 
 
 def tree_adjoint_local_bytes(depth: int) -> int:
@@ -87,6 +84,13 @@ def tree_adjoint_local_bytes(depth: int) -> int:
     record, per level a 96-byte adjoint frame, and the light sums (16 x 12
     B); ptxas's figures for the built caps are in PERF.md."""
     return 72 * (2 ** (depth + 1) - 1) + 96 * (depth + 1) + 200
+
+
+def resident_threads(device) -> int:
+    """Threads the card ``device`` holds at once, for each of which CUDA
+    reserves a kernel's local memory."""
+    p = torch.cuda.get_device_properties(device)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
 
 
 def diff_tables(tables: Dict[str, torch.Tensor], nl: int):
@@ -218,16 +222,19 @@ def _check_planes(v, *planes) -> None:
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _check_caps(entry: str, depth: int, nl: int, tree: bool) -> None:
+def _check_caps(entry: str, depth: int, nl: int, tree: bool,
+                device) -> None:
     cap = TREE_ADJOINT_MAX_DEPTH if tree else ADJOINT_MAX_DEPTH
     if depth > cap or nl > ADJOINT_MAX_LIGHTS:
         why = ""
         if tree and depth > cap:
             b = tree_adjoint_local_bytes(depth)
             why = (f"; a thread's records at depth {depth} would take about "
-                   f"{b} B of local memory, {b * RESIDENT_THREADS / 2**30:.1f}"
-                   f" GiB reserved for the card's {RESIDENT_THREADS} "
-                   f"resident threads")
+                   f"{b} B of local memory")
+            if device.type == "cuda":
+                n = resident_threads(device)
+                why += (f", {b * n / 2**30:.1f} GiB reserved for the card's "
+                        f"{n} resident threads")
         raise ValueError(f"{entry} holds {'tree' if tree else 'chain'} depth "
                          f"<= {cap} and <= {ADJOINT_MAX_LIGHTS} lights, got "
                          f"depth {depth}, {nl} lights{why} (ROADMAP.md, port "
@@ -295,7 +302,7 @@ def adjoint_packed(tables, v, eye, img, target, mask, pk, *,
               want_trans=want_trans)
     if v.device.type == "cpu":
         return adjoint_packed_ref(tables, v, eye, img, target, mask, pk, **kw)
-    _check_caps("adjoint_packed", depth, nl, tree=False)
+    _check_caps("adjoint_packed", depth, nl, False, v.device)
     return _launch_adjoint(
         "adjoint_packed", tables, v, nl, v.data_ptr(), img.data_ptr(),
         target.data_ptr(), mask.data_ptr(), pk.data_ptr(), P,
@@ -324,7 +331,7 @@ def fused_adjoint(tables, v, eye, target, mask, *, tree: bool,
     _check(tables, v, kw["depth"], kw["nl"])
     P = v.shape[0]
     _check_planes(v, ("target", target, (P, 3)), ("mask", mask, (P,)))
-    _check_caps("fused_adjoint", kw["depth"], kw["nl"], tree)
+    _check_caps("fused_adjoint", kw["depth"], kw["nl"], tree, v.device)
     if v.device.type == "cpu":
         return fused_adjoint_ref(tables, v, eye, target, mask, tree=tree,
                                  g_scale=g_scale, **kw)
@@ -344,7 +351,7 @@ def recompute_adjoint(tables, v, eye, g, *, tree: bool, **kw):
     _check(tables, v, kw["depth"], kw["nl"])
     P = v.shape[0]
     _check_planes(v, ("g", g, (P, 3)))
-    _check_caps("recompute_adjoint", kw["depth"], kw["nl"], tree)
+    _check_caps("recompute_adjoint", kw["depth"], kw["nl"], tree, v.device)
     if v.device.type == "cpu":
         return recompute_adjoint_ref(tables, v, eye, g, tree=tree, **kw)
     return _launch_adjoint(
@@ -368,7 +375,7 @@ def fit_grads(tables, v, eye, g, res: Dict[str, torch.Tensor], *, nl: int,
     _check_planes(v, ("g", g, (P, 3)), ("bi", res["bi"], (depth + 1, P)),
                   ("mid", res["mid"], (depth + 1, P)),
                   ("lit", res["lit"], (nl, depth + 1, P)))
-    _check_caps("fit_grads", depth, nl, tree=False)
+    _check_caps("fit_grads", depth, nl, False, v.device)
     kw = dict(nl=nl, depth=depth, atten=atten, want_trans=want_trans)
     if v.device.type == "cpu":
         return fit_grads_ref(tables, v, eye, g, res, **kw)
@@ -417,12 +424,6 @@ def scene_tables(scene: FlatScene, config: RenderConfig, device=None):
     return scene, pack_scene(scene), render_kwargs(scene, config)
 
 
-def _pack_counts(scene_c: FlatScene, tables) -> Tuple[int, int, int, int]:
-    """The (nt, ns, m, nl) of ``pack_widths`` for a compacted scene."""
-    return (tables["tri"].shape[0], scene_c.num_spheres,
-            scene_c.num_materials, scene_c.num_lights)
-
-
 def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
                   device=None):
     """The fit kernels' per-step inputs from a scene:
@@ -431,13 +432,13 @@ def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
     keywords (``render_packed(tables, v, eye, pack=akw["pack"], **kw)``)
     and the adjoint's keywords (``adjoint_packed(..., **akw)``), whose
     cotangent scale is that of ``mean((img - target)^2)`` over
-    ``num_pixels`` RGB pixels.  ``akw["pack"]`` is ``pack_widths``'s, or
-    None where the scene overflows the pack (only K3/K4 take it).  K6 and
-    K7 take ``kw`` (and K6 ``akw``'s ``g_scale``)."""
+    ``num_pixels`` RGB pixels.  Raises where the scene overflows the pack
+    (``pack_widths``), which only K3/K4 take: K6 and K7 take
+    ``scene_tables``'s keywords."""
     scene, tables, kw = scene_tables(scene, config, device)
-    counts = _pack_counts(scene, tables)
-    akw = dict(pack=pack_widths(*counts) if pack_fits(*counts) else None,
-               g_scale=2.0 / (num_pixels * 3), nl=kw["nl"],
+    pack = pack_widths(tables["tri"].shape[0], scene.num_spheres,
+                       scene.num_materials, scene.num_lights)
+    akw = dict(pack=pack, g_scale=2.0 / (num_pixels * 3), nl=kw["nl"],
                depth=kw["depth"], atten=kw["atten"],
                want_trans=kw["want_trans"])
     return scene, tables, kw, akw
@@ -479,8 +480,6 @@ def twophase_loss_grads_kernel(scene: FlatScene, camera: Camera,
     v, eye = prep["v"], prep["eye"]
     scene, tables, kw, akw = kernel_inputs(scene, config, v.shape[0],
                                            device=device)
-    if akw["pack"] is None:
-        pack_widths(*_pack_counts(scene, tables))  # raises: it overflows
     img, pk = render_packed(tables, v, eye, pack=akw["pack"], **kw)
     loss, dsph, dmat, dlight = adjoint_packed(
         tables, v, eye, img, prep["target"], prep["mask"], pk, **akw)
@@ -499,11 +498,10 @@ def fused_loss_grads_kernel(scene: FlatScene, camera: Camera,
     device = resolve_device(device)
     prep = _prep_for(camera, config, target, prep, device)
     v, eye = prep["v"], prep["eye"]
-    scene, tables, kw, akw = kernel_inputs(scene, config, v.shape[0],
-                                           device=device)
+    scene, tables, kw = scene_tables(scene, config, device)
     loss, dsph, dmat, dlight = fused_adjoint(
         tables, v, eye, prep["target"], prep["mask"],
-        tree=not scene.chain_exact, g_scale=akw["g_scale"], **kw)
+        tree=not scene.chain_exact, g_scale=2.0 / (v.shape[0] * 3), **kw)
     return loss, _grads_c(scene, dsph, dmat, dlight)
 
 

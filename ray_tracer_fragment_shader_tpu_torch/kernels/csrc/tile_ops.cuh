@@ -20,8 +20,8 @@
 // sweep (occluded_any) and the Phong blend (shade) multiply and add in
 // bfloat16, every compare, reciprocal and square root on an f32 upcast, the
 // rest of the node in f32.  Each bf16 operation rounds on its own, as the
-// TPU's and PyTorch's bf16 ops do: the __h*_rn intrinsics, which the CUDA
-// math API keeps out of fused multiply-adds.
+// TPU's and PyTorch's bf16 ops do: the __h*_rn intrinsics, which
+// cuda_bf16.h documents as never contracted into a fused multiply-add.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -807,23 +807,6 @@ def render_residuals(tables, v, eye: Sequence[float], *, tree: bool, **kw):
     return img, dict(bi=buf[0], mid=buf[1], lit=buf[2:])
 
 
-def _field_widths(nt: int, ns: int, m: int) -> Tuple[int, int]:
-    """The powers of two (bw_bi, bw_mid) above the id ranges."""
-    bw_bi = 1
-    while bw_bi < nt + ns + 2:
-        bw_bi *= 2
-    bw_mid = 1
-    while bw_mid < m + 1:
-        bw_mid *= 2
-    return bw_bi, bw_mid
-
-
-def pack_fits(nt: int, ns: int, m: int, nl: int) -> bool:
-    """Whether the packed residual of ``pack_widths`` holds the scene."""
-    bw_bi, bw_mid = _field_widths(nt, ns, m)
-    return bw_bi * bw_mid * (2 ** nl) <= 2 ** 24
-
-
 def pack_widths(nt: int, ns: int, m: int, nl: int) -> Tuple[float, float]:
     """Field widths (bw_bi, bw_mid) of the single-plane packed residual: one
     f32 holds ``(bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid`` exactly (every
@@ -831,11 +814,17 @@ def pack_widths(nt: int, ns: int, m: int, nl: int) -> Tuple[float, float]:
     Raises if the scene exceeds the 2^24 f32 exact-integer budget
     (render_pallas.py::pack_widths).  Only K3/K4 (``render_packed``,
     ``adjoint_packed``) take the pack."""
-    if not pack_fits(nt, ns, m, nl):
+    bw_bi = 1
+    while bw_bi < nt + ns + 2:
+        bw_bi *= 2
+    bw_mid = 1
+    while bw_mid < m + 1:
+        bw_mid *= 2
+    if bw_bi * bw_mid * (2 ** nl) > 2 ** 24:
         raise ValueError(
             f"packed residual overflows f32 exact integers: "
             f"{nt + ns} primitives x {m} materials x {nl} lights")
-    return tuple(float(w) for w in _field_widths(nt, ns, m))
+    return float(bw_bi), float(bw_mid)
 
 
 def unpack_residuals(pk: torch.Tensor, nl: int,

@@ -15,8 +15,8 @@ any-hit sweep, lit lights, hit levels and pixels with a nonzero cotangent
 in the adjoint.  Bytes count each input that the function needs read once
 (in the adjoint: a ray and residual levels only where the cotangent is
 nonzero) and each output written once.  The bound is the larger of
-ops / 67 TFLOP/s and bytes / 3.35 TB/s (H100 SXM, FP32 outside the tensor
-cores, at 700 W).
+ops / 67 TFLOP/s (the bf16 operations at twice that) and bytes / 3.35 TB/s
+(H100 SXM, FP32 and bf16 outside the tensor cores, at 700 W).
 
 Each work function also returns ``classes``: its operations by class, the
 numerator ``utils/roofline.py`` prices at the rate K9 measures for their
@@ -31,11 +31,14 @@ leaves out.  A branch, a table load and the loop counters are not counted.
 The ``bf16_shading`` forms (tile_ops.cuh's ``tri_hit_bf16``,
 ``sph_hit_bf16``, the ray cast of ``occluded_any<true>`` and the bf16
 blend of ``shade``; the ``*_BF16`` units) count each bfloat16 + - * and
-each conversion between f32 and bf16 as one ``basic`` operation: priced
-at the FP32 rate, since the card's bf16 arithmetic measured no faster than
-f32 on scalar chains (P2, PERF.md).  ``BF16_SPLIT`` says how many of a
-unit's ``basic`` are bf16 operations and conversions; the work functions
-return their sums as ``bf16_ops`` and ``cvt_ops``.
+each conversion between f32 and bf16 that the function needs per ray as
+one ``basic``: the conversions of the ray and of the blend's per-pixel
+operands, not those of the scene's table values, which it needs once per
+scene (the kernels cast them per test all the same).  ``BF16_OPS`` says
+how many of a unit's ``basic`` are bfloat16, which the data-sheet bound
+prices at twice the FP32 rate; K9's pricing keeps them ``basic``: the
+card's bf16 arithmetic measured no faster than f32 on scalar chains (P2,
+PERF.md).
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ from ..kernels.render import (_PlainOps, n_tree_nodes, render_residuals_ref,
 
 #: H100 SXM peaks (NVIDIA data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12
+#: bfloat16 outside the tensor cores: two lanes an instruction, twice FP32
+PEAK_BF16_FLOPS = 2 * PEAK_FP32_FLOPS
 PEAK_BYTES_PER_S = 3.35e12
 
 # --- tile_ops.cuh (forward), FP32 operations per unit ----------------------
@@ -61,10 +66,10 @@ SHADE_LIGHT = 56   # shade, one light without its shadow sweep
 CHAIN_STEP = 11    # render_chain.cu child select and throughput
 TREE_PUSH = 12     # render_tree.cu, one pushed child
 # the bf16_shading forms: the f32 unit's operations, some in bf16, plus
-# the conversions (BF16_SPLIT)
-TRI_TEST_BF16 = 62     # tri_hit_bf16
-SPH_TEST_BF16 = 24     # sph_hit_bf16
-SHADE_LIGHT_BF16 = 76  # shade with the bf16 blend, one light
+# the conversions of per-ray values
+TRI_TEST_BF16 = 46     # tri_hit_bf16
+SPH_TEST_BF16 = 21     # sph_hit_bf16
+SHADE_LIGHT_BF16 = 67  # shade with the bf16 blend, one light
 SWEEP_CAST_BF16 = 9    # occluded_any<true>: the ray cast once per sweep
 # --- adjoint_ops.cuh / adjoint_packed.cu -----------------------------------
 PROLOGUE = 15        # cotangent and squared-error term, per pixel
@@ -98,13 +103,19 @@ CLASSES = {
     "SHADE_LIGHT": dict(basic=53, div=1, rsqrt=2, cmp=3, select=4, abs=2),
     "CHAIN_STEP": dict(basic=11, cmp=3, select=7),
     "TREE_PUSH": dict(basic=12, cmp=1),
-    # (BF16_SPLIT) mm's subtraction, product and 1/ndv, sb+tb in f32
-    "TRI_TEST_BF16": dict(basic=61, div=1, cmp=7, select=1, abs=1),
-    # (BF16_SPLIT) disc and the root in f32
-    "SPH_TEST_BF16": dict(basic=23, sqrt=1, cmp=5, select=1),
-    # (BF16_SPLIT) per channel w*L and the += in f32, as SHADE_LIGHT's rest
-    "SHADE_LIGHT_BF16": dict(basic=73, div=1, rsqrt=2, cmp=3, select=4,
+    # the dot products, hit point and barycentrics in bf16; mm's
+    # subtraction, product and 1/ndv and sb+tb in f32; ndv, ndo, sb and tb
+    # back to f32 and mm to bf16 (its 16 table casts not counted)
+    "TRI_TEST_BF16": dict(basic=45, div=1, cmp=7, select=1, abs=1),
+    # the offsets and two dot products in bf16; disc and the root in f32;
+    # ud and |d|^2 back (its 3 table casts not counted)
+    "SPH_TEST_BF16": dict(basic=20, sqrt=1, cmp=5, select=1),
+    # the blend's 6 a channel in bf16; SHADE_LIGHT's rest, per channel
+    # w*L and the += in f32; ndots, udotr and per channel thr, w*L and
+    # the product converted (its 9 material casts not counted)
+    "SHADE_LIGHT_BF16": dict(basic=64, div=1, rsqrt=2, cmp=3, select=4,
                              abs=2),
+    # origin, direction and unit direction to bf16
     "SWEEP_CAST_BF16": dict(basic=9),
     "PROLOGUE": dict(basic=15, cmp=3),
     # safe_sqrt(|v|^2), safe_recip(|v|), the kind compare
@@ -125,21 +136,8 @@ CLASSES = {
 }
 #: the classes that make up a unit's count
 COUNTED = ("basic", "div", "sqrt", "rsqrt")
-#: of each bf16 unit's ``basic``: bfloat16 + - * (``bf16``) and conversions
-#: between f32 and bf16 (``cvt``)
-BF16_SPLIT = {
-    # the dot products, hit point and barycentrics (37); 16 table scalars
-    # and mm cast to bf16, ndv, ndo, sb and tb back (21)
-    "TRI_TEST_BF16": dict(bf16=37, cvt=21),
-    # the offsets and two dot products (13); 3 table scalars cast, ud and
-    # |d|^2 back (5)
-    "SPH_TEST_BF16": dict(bf16=13, cvt=5),
-    # per channel the blend's 6 (18); ndots, udotr and per channel 5
-    # operands cast, the product back (20)
-    "SHADE_LIGHT_BF16": dict(bf16=18, cvt=20),
-    # origin, direction and unit direction (9)
-    "SWEEP_CAST_BF16": dict(cvt=9),
-}
+#: of each bf16 unit's ``basic``, the bfloat16 + - * (as CLASSES says)
+BF16_OPS = {"TRI_TEST_BF16": 37, "SPH_TEST_BF16": 13, "SHADE_LIGHT_BF16": 18}
 
 
 def _price(units: Dict[str, int]) -> Tuple[float, Dict[str, float]]:
@@ -153,22 +151,17 @@ def _price(units: Dict[str, int]) -> Tuple[float, Dict[str, float]]:
     return float(ops), classes
 
 
-def bf16_split(units: Dict[str, int]) -> Dict[str, float]:
-    """``bf16_ops`` and ``cvt_ops`` of ``units`` (``BF16_SPLIT``)."""
-    return {f"{k}_ops": float(sum(n * BF16_SPLIT.get(u, {}).get(k, 0)
-                                  for u, n in units.items()))
-            for k in ("bf16", "cvt")}
-
-
 def _add(units: Dict[str, int], **counts) -> Dict[str, int]:
     for u, n in counts.items():
         units[u] = units.get(u, 0) + int(n)
     return units
 
 
-def bound_ms(ops: float, nbytes: float) -> Tuple[float, str]:
-    """(least time in ms, "operations" or "bytes": which term bounds)."""
-    t_ops = ops / PEAK_FP32_FLOPS
+def bound_ms(ops: float, nbytes: float,
+             bf16_ops: float = 0.0) -> Tuple[float, str]:
+    """(least time in ms, "operations" or "bytes": which term bounds) of
+    ``ops`` operations, ``bf16_ops`` of them bfloat16, and ``nbytes``."""
+    t_ops = (ops - bf16_ops) / PEAK_FP32_FLOPS + bf16_ops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -217,13 +210,13 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
                  residuals: bool = False, nl: int, depth: int, small: float,
                  atten: float, checker_mats, want_trans: bool,
                  bf16: bool = False) -> Dict[str, float]:
-    """FP32 operations and bytes of one chain (``tree=False``) or tree
-    kernel call on [P,3] primary directions ``v`` — what
-    csrc/render_chain.cu or render_tree.cu runs on these inputs, in its
-    bf16_shading form with ``bf16``.  ``packed`` adds the packed plane's
-    bytes (4 per level), ``residuals`` the unpacked planes' ((2+nl)*4 per
-    level or preorder node), written for every pixel; neither adds
-    operations."""
+    """Operations and bytes of one chain (``tree=False``) or tree kernel
+    call on [P,3] primary directions ``v`` — what csrc/render_chain.cu or
+    render_tree.cu runs on these inputs, in its bf16_shading form with
+    ``bf16`` (``bf16_ops`` of the operations then bfloat16).  ``packed``
+    adds the packed plane's bytes (4 per level), ``residuals`` the
+    unpacked planes' ((2+nl)*4 per level or preorder node), written for
+    every pixel; neither adds operations."""
     P = v.shape[0]
     ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
                     checker_mats=checker_mats, all_opaque=not want_trans,
@@ -295,7 +288,9 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
     nbytes = (P * 24 + (P * 4 * (depth + 1) if packed else 0)
               + (P * 4 * (2 + nl) * K if residuals else 0))
     return dict(work, ops=flops, classes=classes, units=units,
-                bytes=float(nbytes), **bf16_split(units))
+                bytes=float(nbytes),
+                bf16_ops=float(sum(n * BF16_OPS.get(u, 0)
+                                   for u, n in units.items())))
 
 
 def _chain_adjoint_ops(bi, lit, g_live, *, nt: int, depth: int,

@@ -609,10 +609,11 @@ def test_unpacked_k6_k7_past_the_pack_and_the_old_depth_cap(cuda, name):
     camera = Camera.from_config(cam, N, N, device=cuda)
     target = K.render_image_kernel(scene, camera, cfg, device=cuda) * 0.9
     prep = AF.prepare_fit_inputs(camera, cfg, target, device=cuda)
-    sc, tables, kw, akw = AF.kernel_inputs(scene, cfg, N * N, device=cuda)
+    sc, tables, kw = AF.scene_tables(scene, cfg, cuda)
     assert not sc.chain_exact
+    g_scale = 2.0 / (N * N * 3)
     args = (tables, prep["v"], prep["eye"], prep["target"], prep["mask"])
-    kw6 = dict(tree=True, g_scale=akw["g_scale"], **kw)
+    kw6 = dict(tree=True, g_scale=g_scale, **kw)
     a = AF.fused_adjoint(*args, **kw6)
     b = AF.fused_adjoint(*args, **kw6)
     torch.cuda.synchronize()
@@ -620,8 +621,8 @@ def test_unpacked_k6_k7_past_the_pack_and_the_old_depth_cap(cuda, name):
     ref = AF.fused_adjoint_ref(*args, **kw6)
     assert a[0].item() == pytest.approx(ref[0].item(), rel=1e-5)
     assert_tables_close(a[1:], ref[1:])
-    g = (akw["g_scale"] * (K.render_tree(tables, prep["v"], prep["eye"],
-                                         **kw) - prep["target"]))
+    g = (g_scale * (K.render_tree(tables, prep["v"], prep["eye"], **kw)
+                    - prep["target"]))
     g = g.contiguous()
     c = AF.recompute_adjoint(tables, prep["v"], prep["eye"], g, tree=True,
                              **kw)
