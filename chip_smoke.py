@@ -125,9 +125,8 @@ Phases (each raises on failure; the script then exits non-zero):
    version (phase 2's budget, planes equal), K6/K7 twice bit-identical
    within 1e-3 of max|plain| and K6 against K3+K4 in bf16 (bit-equality
    printed); K6/K7 in f32 on ``presets.pack_overflow`` (past the 2^24
-   pack) and on a tree at the deepest cap, and the refusal one level
-   deeper; then, each with the launch counters zeroed just before and
-   read just after, the bf16 path at full width: ``render_image_kernel``
+   pack) and on a tree at the deepest cap; then, each with the launch
+   counters zeroed just before and read just after, the bf16 path at full width: ``render_image_kernel``
    at config 3 and ``fractional_glass`` 1024^2 d3, ``fit_value_and_grad``
    in the twophase, fused and split modes at config 3 (each held against
    K6's plain version), 5 Adam steps of ``make_fit_step_kernel`` with the
@@ -139,6 +138,28 @@ Phases (each raises on failure; the script then exits non-zero):
    data sheet's, bf16 operations priced as FP32 ones, and K9's rate for
    the f32 kernel's blend) and ``bf16_ab.py``
    (chiprun_out/bf16_shading_ab_h100.json).
+15. the compacted, sparse adjoints (``sparse_phase``, on
+   ``adjoint_ab.py``'s inputs and checks): K4, K6, K7 and K8, each twice
+   bit-identical and against its plain version (loss within 1e-5
+   relative, each table within 1e-3 of max|plain|), under the real
+   cotangent, an all-zero one (every table exactly 0, K4's and K6's loss
+   the full sum) and one live pixel (the hit pixel nearest the frame's
+   centre; some plain table nonzero), at config 3, config 5 2048^2,
+   reference_demo 500^2 d5, fractional_glass 1024^2 d3 (the tree),
+   pack_overflow 128^2 and a 57^2 frame (3249 pixels, not a multiple of
+   256); K8 under K4's cotangent equal to K4 bit for bit; K6/K7 on
+   ``presets.glass_cube`` 64^2 (trees that hit at every level) at depths
+   7, 8 and 10, and the refusal at depth 11; the K4, K7 and K8 wrappers
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   synchronisation); with the launch counters zeroed just before each, the
+   tree fit on glass_cube 128^2 d10 (K6) and a 2-sample fit on glass_cube
+   128^2 d8 (K5 and K7), each held against its plain version; and
+   ``adjoint_ab.py``'s times of K4, K6, K7 and K8 under the real, an
+   all-zero and an all-live cotangent, with the live pixels counted and
+   each wrapper's host time a call, and the host-clock times of the
+   config 3 fwd+bwd step (two-phase and split), the 500^2 d5 16-spp
+   frame differentiated and ``render_image_diff`` on the tree
+   (chiprun_out/adjoint_ab_h100.json).
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.  The bf16 rows
@@ -631,15 +652,6 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
                    AF.recompute_adjoint_ref(*args7, **kw7))
         print(f"A1 {label}: tree {x['tree']}, depth {x['kw']['depth']}")
         del x, a, b, args, args7
-    args, kw6 = fused_args(fit_inputs(
-        K, AF, dev, presets.fractional_glass(size=16, depth=deep + 1)))
-    try:
-        AF.fused_adjoint(*args, **kw6)
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    print(f"A1 depth {deep + 1}: {refused}")
-    check("B of local memory" in refused, f"depth {deep + 1} not refused")
     torch.cuda.empty_cache()
 
     # -- the path at full width, each with the counters zeroed just before
@@ -893,6 +905,148 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
     check(bf16_ab.main(["--out", os.path.join(REPO, bf16_ab.OUT)]) == 0,
           "bf16_ab failed")
     print(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
+
+def sparse_phase(dev, card, launches, errs):
+    """Phase 15: the compacted, sparse adjoints and the tree cap at 10.
+    Adds to ``launches`` and ``errs`` of K4, K6, K7 and K8."""
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch import adjoint_ab
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import FitParams
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import (
+        Camera, sample_jitter)
+    from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    t15 = time.perf_counter()
+
+    def hold(label, x, cot):
+        """adjoint_ab.hold: each kernel twice bit-identical and against its
+        plain version; K8 under K4's cotangent equal to K4 bit for bit."""
+        report = adjoint_ab.hold(x, cot)
+        for kname, r in report.items():
+            errs[kname].extend(r["diffs"])
+            loss_txt = ("" if r["loss_rel"] is None
+                        else f"loss rel {r['loss_rel']:.2e}, ")
+            print(f"check {kname:17s} {label} {cot}: two launches "
+                  f"bit-identical, {loss_txt}max|diff|/max|plain| "
+                  f"{r['worst']:.2e} (tolerance {adjoint_ab.GRAD_REL_TOL}), "
+                  f"max|plain| {r['plain_max']:.3g}")
+        if "fit_grads" in report:
+            print(f"check fit_grads {label} {cot}: equals K4 bit for bit")
+        if cot == "zero":
+            print(f"check {label} zero: every table exactly 0")
+        if cot == "one":
+            print(f"check {label} one: pixel {adjoint_ab.one_pixel(x)}, "
+                  f"some plain table nonzero")
+
+    # -- 1. every adjoint against its plain version at full width
+    demo, demo_cam, demo_cfg = presets.reference_demo()
+    cases = [
+        ("config 3 1024^2 d3", presets.full_reflective(size=1024, depth=3)),
+        ("config 5 2048^2 d3",
+         presets.procedural_spheres(n=64, size=2048, depth=3)),
+        ("reference_demo 500^2 d5",
+         (demo, demo_cam, dataclasses.replace(demo_cfg, samples=1))),
+        ("fractional_glass 1024^2 d3",
+         presets.fractional_glass(size=1024, depth=3)),
+        ("pack_overflow 128^2 (tree)", presets.pack_overflow(128)),
+        ("full_reflective 57^2 d3 (3249 pixels)",
+         presets.full_reflective(size=57, depth=3))]
+    for label, preset in cases:
+        x = adjoint_ab.inputs(preset, dev)
+        for cot in ("real", "zero", "one"):
+            hold(label, x, cot)
+        del x
+        torch.cuda.empty_cache()
+
+    # -- 2. K6/K7 on trees of depth 7, 8 and 10, and the refusal at 11
+    for depth in (7, 8, 10):
+        x = adjoint_ab.inputs(presets.glass_cube(size=64, depth=depth), dev)
+        check(x["tree"], "glass_cube is not a tree scene")
+        hold(f"glass_cube 64^2 d{depth}", x, "real")
+    try:
+        AF.fused_adjoint(x["tables"], x["v"], x["eye"], x["target"],
+                         x["mask"], tree=True, g_scale=1.0,
+                         **dict(x["kw"], depth=11))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"tree depth 11: {refused}")
+    check("tree depth <= 10" in refused, "tree depth 11 not refused")
+
+    # -- 3. no host synchronisation in the compacted wrappers
+    x = adjoint_ab.inputs(presets.full_reflective(size=1024, depth=3), dev)
+    fns = adjoint_ab.calls(x, "real")
+    for kname in ("adjoint_packed", "recompute_adjoint", "fit_grads"):
+        adjoint_ab.run(AF, fns[kname])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for kname in ("adjoint_packed", "recompute_adjoint", "fit_grads"):
+            adjoint_ab.run(AF, fns[kname])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("check adjoint_packed, recompute_adjoint, fit_grads config 3: no "
+          "host synchronisation (set_sync_debug_mode(\"error\")): True")
+    del x, fns
+    torch.cuda.empty_cache()
+
+    # -- 4. the deep-tree paths, each with the counters zeroed just before
+    def drive(label, fn, want):
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        print(f"path {label}: launches "
+              f"{ {k: c for k, c in counts.items() if c} }")
+        for k in want:
+            check(counts[k] > 0, f"{label}: never launched {k}")
+            launches[k] += counts[k]
+        return out
+
+    x = fit_inputs(K, AF, dev, presets.glass_cube(size=128, depth=10))
+    params = x["params"].to(dev)
+    loss, grads = drive(
+        "tree fit glass_cube 128^2 d10", lambda: AF.fit_value_and_grad(
+            params, x["scene"], x["camera"], x["cfg"], x["target"],
+            device=dev), ["fused_adjoint"])
+    args, kw6 = fused_args(x)
+    ref6 = AF.fused_adjoint_ref(*args, **kw6)
+    errs["fused_adjoint"].append(hold_fields(
+        "fused_adjoint", "glass_cube 128^2 d10 (path)", loss, grads,
+        ref6[0] / (x["v"].shape[0] * 3), as_fields(AF, x, ref6[1:])))
+    scene, cam, cfg = presets.glass_cube(size=128, depth=8)
+    cfg = dataclasses.replace(cfg, samples=2)
+    camera = Camera.from_config(cam, 128, 128, device=dev)
+    gen = torch.Generator(dev).manual_seed(cfg.seed)
+    jit = torch.stack([sample_jitter(gen, 128 * 128, cfg.jitter_scale)
+                       .to(dev) for _ in range(2)])
+    target = K.render_image_kernel(scene, camera, cfg, jitter=jit,
+                                   device=dev)
+    start = FitParams.from_scene(scene)
+    with torch.no_grad():
+        start.sph_center += 1.5
+    params = FitParams.from_scene(scene).to(dev)
+    params.load_state_dict(start.state_dict())
+    loss, grads = drive(
+        "2 spp fit glass_cube 128^2 d8", lambda: AF.fit_value_and_grad(
+            params, scene, camera, cfg, target, jitter=jit, device=dev),
+        ["render_tree", "recompute_adjoint"])
+    ref_loss, ref, _ = sampled_plain(AF, K, dev, (scene, cam, cfg), start,
+                                     jit)
+    errs["recompute_adjoint"].append(hold_fields(
+        "recompute_adjoint", "2 spp glass_cube 128^2 d8 (path)", loss, grads,
+        ref_loss, ref))
+    del x, params, args, ref6, grads, ref
+    torch.cuda.empty_cache()
+
+    # -- 5. the kernels under real, all-zero and all-live cotangents
+    check(adjoint_ab.main(["--out", os.path.join(REPO, adjoint_ab.OUT)])
+          == 0, "adjoint_ab failed")
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
 
 def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
@@ -2024,6 +2178,9 @@ def main():
 
     # ---- 14. bf16_shading and the unpacked K6/K7 -------------------------
     bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9)
+
+    # ---- 15. the compacted, sparse adjoints; trees to depth 10 ------------
+    sparse_phase(dev, card, launches, errs)
 
     kernels = []
     for k in list(KERNEL_SOURCES) + list(BF16_ROWS):

@@ -222,9 +222,15 @@ def replay_tree(geom, o, v, bi, mid, lit, *, depth: int,
     reflected child where it is not fully transparent (``refl_ok``),
     weighted 1-T."""
     counter = [0]
+    # whether each node hits on some ray, read back once (one host sync)
+    live = (bi >= 0.0).any(dim=1).tolist()
 
     def node(o, v, level):
         idx = counter[0]
+        if not live[idx]:
+            # the node misses on every ray, so does its subtree: zero
+            counter[0] += 2 ** (depth - level + 1) - 1
+            return torch.zeros_like(v)
         counter[0] += 1
         nm = _node_math(geom, o, v, bi[idx], mid[idx], lit[:, idx], atten)
         color = nm["local"]

@@ -21,9 +21,13 @@ Four kernels, each behind a wrapper that counts its launches
   cotangent given from outside; ``mode="split"``, and the only fit path of
   chain scenes whose packed residual word would overflow 2^24.
 
-One thread runs one pixel.  Each block writes one row of per-entity
-partial sums, and a second kernel adds the rows in a fixed order, so two
-launches give bit-identical tables.
+One thread runs one pixel.  K4, K7 and K8 run on the list of the pixels
+whose cotangent is nonzero, built on the device first (``_live_list``,
+with no host synchronisation), so a warp holds 32 pixels that add
+something; K6 runs on every pixel.  Each warp sums only the per-entity
+columns its pixels touch, each block writes one row of partial sums, and
+a last kernel adds the rows in a fixed order, so two launches give
+bit-identical tables.
 
 Under ``RenderConfig.bf16_shading`` (``render_kwargs``'s ``bf16``) the
 forwards of K3, K6 and K7 run in their bf16 form, and K4, K8 and the
@@ -50,7 +54,8 @@ from ..config import RenderConfig
 from ..ops.rays import Camera, primary_rays, screen_points
 from ..scene.flat import FlatScene
 from .adjoint import replay_chain, replay_tree
-from .render import (LAUNCHES, SMEM_LIMIT_BYTES, _check, _flat_tables,
+from .render import (LAUNCHES, SMEM_LIMIT_BYTES, TREE_MAX_DEPTH, _check,
+                     _flat_tables,
                      adaptive_step, compact_scene, jitter_source, launch_key,
                      pack_scene, pack_widths, render_chain,
                      render_forward_with_residuals, render_kwargs,
@@ -68,22 +73,26 @@ ADJOINT_MAX_DEPTH = 15
 ADJOINT_MAX_LIGHTS = 16
 #: the tree depths K6 and K7 are built for (csrc/adjoint_fused.cu::
 #: kTreeAdjDepthCaps): 5, the reference's depth (63 preorder nodes a
-#: thread), and 6, the deepest whose per-thread local memory CUDA can
-#: reserve for every resident thread within a few GB (10,016 B a
-#: thread, 2.52 GiB on an H100; 7 would take 4.87 GiB); a launch takes the
-#: smallest that holds the scene
-TREE_ADJOINT_DEPTH_CAPS = (5, 6)
+#: thread), 7, and 10, the tree forward's own limit (``TREE_MAX_DEPTH``);
+#: a launch takes the smallest that holds the scene, since CUDA reserves a
+#: kernel's local memory for every thread the card holds
+TREE_ADJOINT_DEPTH_CAPS = (5, 7, 10)
 TREE_ADJOINT_MAX_DEPTH = TREE_ADJOINT_DEPTH_CAPS[-1]
+assert TREE_ADJOINT_MAX_DEPTH == TREE_MAX_DEPTH
 #: threads a block of the adjoint kernels (csrc/adjoint_ops.cuh::kAdjThreads)
 ADJOINT_THREADS = 256
+#: most blocks an adjoint launch runs (csrc/adjoint_ops.cuh::kAdjGridCap):
+#: a constant, so every sum's order is the same on every launch
+ADJOINT_GRID_CAP = 1024
+#: floats of shared memory an adjoint block stages node records in
+#: (csrc/adjoint_ops.cuh::BlockSums: 8 warps x 32 lanes x 13)
+ADJOINT_STAGE_FLOATS = 8 * 32 * 13
 
 
-def tree_adjoint_local_bytes(depth: int) -> int:
-    """Estimated local memory of one K6/K7 tree thread at depth cap
-    ``depth``: per preorder node a 12-byte record and a 60-byte gradient
-    record, per level a 96-byte adjoint frame, and the light sums (16 x 12
-    B); ptxas's figures for the built caps are in PERF.md."""
-    return 72 * (2 ** (depth + 1) - 1) + 96 * (depth + 1) + 200
+def adjoint_blocks(num_pixels: int) -> int:
+    """Blocks of an adjoint launch over ``num_pixels`` pixels, each walking
+    chunks of 256 (csrc/adjoint_ops.cuh::adjoint_blocks)."""
+    return min(max(-(-num_pixels // ADJOINT_THREADS), 1), ADJOINT_GRID_CAP)
 
 
 def resident_threads(device) -> int:
@@ -222,32 +231,57 @@ def _check_planes(v, *planes) -> None:
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _check_caps(entry: str, depth: int, nl: int, tree: bool,
-                device) -> None:
+def _check_caps(entry: str, depth: int, nl: int, tree: bool) -> None:
     cap = TREE_ADJOINT_MAX_DEPTH if tree else ADJOINT_MAX_DEPTH
     if depth > cap or nl > ADJOINT_MAX_LIGHTS:
-        why = ""
-        if tree and depth > cap:
-            b = tree_adjoint_local_bytes(depth)
-            why = (f"; a thread's records at depth {depth} would take about "
-                   f"{b} B of local memory")
-            if device.type == "cuda":
-                n = resident_threads(device)
-                why += (f", {b * n / 2**30:.1f} GiB reserved for the card's "
-                        f"{n} resident threads")
+        why = (" (the tree forward's own limit, TREE_MAX_DEPTH)" if tree
+               else "")
         raise ValueError(f"{entry} holds {'tree' if tree else 'chain'} depth "
-                         f"<= {cap} and <= {ADJOINT_MAX_LIGHTS} lights, got "
-                         f"depth {depth}, {nl} lights{why} (ROADMAP.md, port "
+                         f"<= {cap}{why} and <= {ADJOINT_MAX_LIGHTS} lights, "
+                         f"got depth {depth}, {nl} lights (ROADMAP.md, port "
                          f"decisions)")
 
 
-def _launch_adjoint(entry: str, tables, v, nl: int, *args,
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _live_list(lib, stream, num_pixels: int, device, loss_rows, *, g=None,
+               img=None, target=None, mask=None, g_scale: float = 0.0):
+    """Builds on the device the list of the pixels whose cotangent is
+    nonzero (csrc/adjoint_packed.cu::rtfs_live_list): their ids in
+    increasing order, and their count.  The cotangent is ``g`` [P,3], or
+    ``g_scale * mask * (img - target)``, whose squared-error sums per block
+    of 256 pixels then go to the pointer ``loss_rows``.  Returns (scratch
+    tensor, ids pointer, count pointer); nothing is read back: the adjoint
+    and the reduction read the count themselves."""
+    from . import cuda_build
+    nb = max(-(-num_pixels // ADJOINT_THREADS), 1)
+    words = nb * ADJOINT_THREADS // 32
+    # ballots | counts | offsets | ids | count, int32
+    buf = torch.empty(words + 2 * nb + max(num_pixels, 1) + 1,
+                      dtype=torch.int32, device=device)
+    base = buf.data_ptr()
+    ids = base + 4 * (words + 2 * nb)
+    count = ids + 4 * max(num_pixels, 1)
+    rc = lib.rtfs_live_list(_ptr(img), _ptr(target), _ptr(mask), _ptr(g),
+                            g_scale, num_pixels, base, base + 4 * words,
+                            base + 4 * (words + nb), loss_rows, ids, count,
+                            stream)
+    cuda_build.check(lib, rc, "live_list")
+    return buf, ids, count
+
+
+def _launch_adjoint(entry: str, tables, v, nl: int, pre, post, *,
+                    live: Optional[Dict[str, Any]] = None,
                     bf16: bool = False):
     """Launches the C entry ``rtfs_<entry>`` on (flat tables, ns, nt, m, nl,
-    *args, partial, num_blocks, stream), then ``rtfs_adjoint_reduce`` over
-    its per-block rows, and counts the launch (its bf16 variant's with
-    ``bf16``).  Returns the column sums as (loss, dsph [ns,8], dmat [m,16],
-    dlight [max(nl,1),8])."""
+    *pre, [ids, count,] *post, partial, num_blocks, stream), then
+    ``rtfs_adjoint_reduce`` over its per-block rows, and counts the launch
+    (its bf16 variant's with ``bf16``).  With ``live`` (``_live_list``'s
+    keywords) the live list is built first and the kernel runs on it.
+    Returns the column sums as (loss, dsph [ns,8], dmat [m,16], dlight
+    [max(nl,1),8]), views of the reduction's one output."""
     if v.device.type != "cuda":
         raise ValueError(f"{entry}: kernels run on CUDA tensors, got "
                          f"{v.device}")
@@ -256,33 +290,46 @@ def _launch_adjoint(entry: str, tables, v, nl: int, *args,
     flat = _flat_tables(tables, nl)
     ns, nt, m = (tables[k].shape[0] for k in ("sph", "tri", "mat"))
     ncols = 1 + 4 * ns + 9 * m + 3 * nl
-    smem = 4 * (flat.numel() + ADJOINT_THREADS // 32 * ncols)
+    smem = 4 * (flat.numel() + ADJOINT_THREADS // 32 * ncols
+                + ADJOINT_STAGE_FLOATS)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"{entry}: tables and partial sums take {smem} B, "
                          f"over the {SMEM_LIMIT_BYTES} B of shared memory a "
                          f"block may use")
-    blocks = max(-(-v.shape[0] // ADJOINT_THREADS), 1)
-    partial = torch.empty((blocks, ncols), dtype=torch.float32,
-                          device=v.device)
-    out = torch.empty(ncols, dtype=torch.float32, device=v.device)
+    P = v.shape[0]
+    blocks = adjoint_blocks(P)
+    nb = max(-(-P // ADJOINT_THREADS), 1)
+    n_out = 1 + SPHD_COLS * ns + MATD_COLS * m + LIGHTD_COLS * max(nl, 1)
+    # out | partial [blocks, ncols] | loss rows [nb], f32
+    buf = torch.empty(n_out + blocks * ncols + nb, dtype=torch.float32,
+                      device=v.device)
+    out = buf[:n_out]
+    partial = buf.data_ptr() + 4 * n_out
+    loss_rows = partial + 4 * blocks * ncols
     with torch.cuda.device(v.device):
         stream = ctypes.c_void_p(
             torch.cuda.current_stream(v.device).cuda_stream)
+        lst, count = (), None
+        if live is not None:
+            scratch, ids, count = _live_list(lib, stream, P, v.device,
+                                             loss_rows, **live)
+            lst = (ids, count)
         rc = getattr(lib, f"rtfs_{entry}")(flat.data_ptr(), ns, nt, m, nl,
-                                            *args, partial.data_ptr(),
+                                            *pre, *lst, *post, partial,
                                             blocks, stream)
         cuda_build.check(lib, rc, entry)
-        rc = lib.rtfs_adjoint_reduce(partial.data_ptr(), blocks, ncols,
-                                     out.data_ptr(), stream)
+        with_loss = live is not None and "img" in live
+        rc = lib.rtfs_adjoint_reduce(partial, blocks, ns, m, nl, count,
+                                     loss_rows if with_loss else None,
+                                     nb if with_loss else 0, out.data_ptr(),
+                                     stream)
         cuda_build.check(lib, rc, "adjoint_reduce")
     LAUNCHES[launch_key(entry, bf16)] += 1
-    sphd = out.new_zeros((ns, SPHD_COLS))
-    sphd[:, 0:4] = out[1:1 + 4 * ns].view(ns, 4)
-    matd = out.new_zeros((m, MATD_COLS))
-    matd[:, 0:9] = out[1 + 4 * ns:1 + 4 * ns + 9 * m].view(m, 9)
-    lightd = out.new_zeros((max(nl, 1), LIGHTD_COLS))
-    lightd[:nl, 0:3] = out[1 + 4 * ns + 9 * m:].view(nl, 3)
-    return out[0], sphd, matd, lightd
+    o_m = 1 + SPHD_COLS * ns
+    o_l = o_m + MATD_COLS * m
+    return (out[0], out[1:o_m].view(ns, SPHD_COLS),
+            out[o_m:o_l].view(m, MATD_COLS),
+            out[o_l:].view(max(nl, 1), LIGHTD_COLS))
 
 
 def adjoint_packed(tables, v, eye, img, target, mask, pk, *,
@@ -302,12 +349,14 @@ def adjoint_packed(tables, v, eye, img, target, mask, pk, *,
               want_trans=want_trans)
     if v.device.type == "cpu":
         return adjoint_packed_ref(tables, v, eye, img, target, mask, pk, **kw)
-    _check_caps("adjoint_packed", depth, nl, False, v.device)
+    _check_caps("adjoint_packed", depth, nl, False)
     return _launch_adjoint(
-        "adjoint_packed", tables, v, nl, v.data_ptr(), img.data_ptr(),
-        target.data_ptr(), mask.data_ptr(), pk.data_ptr(), P,
-        *(float(e) for e in eye), depth, atten, g_scale, float(pack[0]),
-        float(pack[1]), int(want_trans))
+        "adjoint_packed", tables, v, nl,
+        (v.data_ptr(), img.data_ptr(), target.data_ptr(), mask.data_ptr(),
+         pk.data_ptr()),
+        (P, *(float(e) for e in eye), depth, atten, g_scale, float(pack[0]),
+         float(pack[1]), int(want_trans)),
+        live=dict(img=img, target=target, mask=mask, g_scale=g_scale))
 
 
 def _forward_args(eye, kw, tree: bool):
@@ -331,14 +380,14 @@ def fused_adjoint(tables, v, eye, target, mask, *, tree: bool,
     _check(tables, v, kw["depth"], kw["nl"])
     P = v.shape[0]
     _check_planes(v, ("target", target, (P, 3)), ("mask", mask, (P,)))
-    _check_caps("fused_adjoint", kw["depth"], kw["nl"], tree, v.device)
+    _check_caps("fused_adjoint", kw["depth"], kw["nl"], tree)
     if v.device.type == "cpu":
         return fused_adjoint_ref(tables, v, eye, target, mask, tree=tree,
                                  g_scale=g_scale, **kw)
     return _launch_adjoint(
-        "fused_adjoint", tables, v, kw["nl"], v.data_ptr(), target.data_ptr(),
-        mask.data_ptr(), P, *_forward_args(eye, kw, tree), g_scale,
-        bf16=kw["bf16"])
+        "fused_adjoint", tables, v, kw["nl"],
+        (v.data_ptr(), target.data_ptr(), mask.data_ptr()),
+        (P, *_forward_args(eye, kw, tree), g_scale), bf16=kw["bf16"])
 
 
 def recompute_adjoint(tables, v, eye, g, *, tree: bool, **kw):
@@ -351,12 +400,13 @@ def recompute_adjoint(tables, v, eye, g, *, tree: bool, **kw):
     _check(tables, v, kw["depth"], kw["nl"])
     P = v.shape[0]
     _check_planes(v, ("g", g, (P, 3)))
-    _check_caps("recompute_adjoint", kw["depth"], kw["nl"], tree, v.device)
+    _check_caps("recompute_adjoint", kw["depth"], kw["nl"], tree)
     if v.device.type == "cpu":
         return recompute_adjoint_ref(tables, v, eye, g, tree=tree, **kw)
     return _launch_adjoint(
-        "recompute_adjoint", tables, v, kw["nl"], v.data_ptr(), g.data_ptr(),
-        P, *_forward_args(eye, kw, tree), bf16=kw["bf16"])[1:]
+        "recompute_adjoint", tables, v, kw["nl"], (v.data_ptr(), g.data_ptr()),
+        (P, *_forward_args(eye, kw, tree)), live=dict(g=g),
+        bf16=kw["bf16"])[1:]
 
 
 def fit_grads(tables, v, eye, g, res: Dict[str, torch.Tensor], *, nl: int,
@@ -375,14 +425,16 @@ def fit_grads(tables, v, eye, g, res: Dict[str, torch.Tensor], *, nl: int,
     _check_planes(v, ("g", g, (P, 3)), ("bi", res["bi"], (depth + 1, P)),
                   ("mid", res["mid"], (depth + 1, P)),
                   ("lit", res["lit"], (nl, depth + 1, P)))
-    _check_caps("fit_grads", depth, nl, False, v.device)
+    _check_caps("fit_grads", depth, nl, False)
     kw = dict(nl=nl, depth=depth, atten=atten, want_trans=want_trans)
     if v.device.type == "cpu":
         return fit_grads_ref(tables, v, eye, g, res, **kw)
     return _launch_adjoint(
-        "fit_grads", tables, v, nl, v.data_ptr(), g.data_ptr(),
-        res["bi"].data_ptr(), res["mid"].data_ptr(), res["lit"].data_ptr(),
-        P, *(float(e) for e in eye), depth, atten, int(want_trans))[1:]
+        "fit_grads", tables, v, nl,
+        (v.data_ptr(), g.data_ptr(), res["bi"].data_ptr(),
+         res["mid"].data_ptr(), res["lit"].data_ptr()),
+        (P, *(float(e) for e in eye), depth, atten, int(want_trans)),
+        live=dict(g=g))[1:]
 
 
 # ------------------------------------------------------------- host side

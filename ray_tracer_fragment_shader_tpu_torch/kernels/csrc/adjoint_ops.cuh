@@ -1,10 +1,12 @@
 // Device code of the hand-written replay adjoints (adjoint_packed.cu,
-// adjoint_fused.cu): one bounce node's primal record and its reverse sweep,
-// per pixel, the counterparts of the JAX package's
+// adjoint_fused.cu, fit_grads.cu): one bounce node's primal record and its
+// reverse sweep, per pixel, the counterparts of the JAX package's
 // kernels/adjoint_fused.py::_node_primal (:274-362), _snell_reverse
 // (:365-384) and _node_reverse (:71-262); the chain's and the tree's
 // adjoint over them (_adjoint_tile_body :387-635, _adjoint_tree_tile_body
-// :638-793); and the fixed-order block sums of the gradient columns.
+// :638-793), in warp-uniform steps; and the sparse, fixed-order block sums
+// of the gradient columns (BlockSums), which take each node's cotangents as
+// it finishes, so that no thread keeps gradient records.
 //
 // A node here is a hit node: the adjoint kernel skips levels at and after a
 // lane's miss, whose every term is masked to exactly zero in the JAX code.
@@ -279,7 +281,7 @@ __device__ __forceinline__ void node_reverse(
   *vbx = vx_b; *vby = vy_b; *vbz = vz_b;
 }
 
-// ---- what the adjoint kernels (adjoint_packed.cu, adjoint_fused.cu) share --
+// ---- what the adjoint kernels (K4, K6, K7, K8) share --------------------
 
 constexpr int kMaxLevels = 16;  // chain depth <= 15 (adjoint_fused.py)
 constexpr int kMaxLights = 16;
@@ -289,6 +291,14 @@ __host__ __device__ constexpr int tree_nodes(int depth) {
 }
 constexpr int kAdjThreads = 256;
 constexpr int kAdjWarps = kAdjThreads / 32;
+// Most blocks an adjoint launch runs; each walks the chunks of 256 pixels
+// blockIdx.x, blockIdx.x + gridDim.x, ... (kernels/adjoint_fused.py::
+// ADJOINT_GRID_CAP).  A constant, so the assignment of pixels to blocks, and
+// with it every sum's order, is the same on every launch and every card.
+constexpr int kAdjGridCap = 1024;
+constexpr unsigned kFullMask = 0xffffffffu;
+// Floats of one node's sparse cotangents: sphere (4) then material (9).
+constexpr int kRecFloats = 13;
 
 struct AdjParams {
   Params prm;  // tables, counts, depth, atten, eye (and the forward's)
@@ -308,45 +318,169 @@ __device__ __forceinline__ NodeConst unpack_word(unsigned q, int bw_bi,
   return c;
 }
 
-// One thread's parameter cotangents: per hit node (a record), its sphere and
-// material cotangents with its primitive and material ids; per light, the
-// light-position cotangent summed over the nodes.
-template <int N>
-struct GradRecs {
-  int n;
-  int bik[N], mid[N];
-  float dsph[N][4], dmat[N][9];
-  float d_lp[kMaxLights][3];
+// A tree node's topology as the tree forms keep it, one per preorder node:
+// 6 bytes (ids below 2^15, as the shared-memory tables keep them, and at
+// most kMaxLights lit bits), where NodeConst takes 12.
+struct TreeRec {
+  short bik, mid;
+  unsigned short lits;
+};
 
-  __device__ void init(int nl) {
-    n = 0;
-    for (int li = 0; li < nl; ++li)
-      d_lp[li][0] = d_lp[li][1] = d_lp[li][2] = 0.0f;
+__device__ __forceinline__ NodeConst unpack_rec(const TreeRec& r) {
+  return NodeConst{r.bik, r.mid, r.lits};
+}
+
+// Sum over the 32 lanes; every lane gets the same, order-fixed value.
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(kFullMask, x, off);
+  return x;
+}
+
+// The gradient sums of one adjoint block, in shared memory after the
+// tables: per warp a row [loss | sph(ns x 4) | mat(m x 9) | light(nl x 3)]
+// of ncols, zeroed once, and a staging area of 32 node records.
+//
+// add() takes one finished node from each lane of a warp (all lanes call
+// it, at a warp-uniform point) and adds into the warp's own row only the
+// columns those nodes touch: __match_any_sync groups the lanes by sphere
+// (sphere hits only) and, apart, by material; each group's lowest lane sums
+// the group's records in lane order (a full warp of one id: a butterfly)
+// and adds the sum to its columns.  Groups touch disjoint columns, so no
+// two lanes write one column, and no float atomics are needed.  finish()
+// adds the dense columns (the loss and the lights, per thread over its
+// pixels, then a butterfly), then sums the warp rows in warp order into the
+// block's row of the partial table.  Every order is fixed by the pixel's
+// place in the launch, so two launches are bit-identical.
+struct BlockSums {
+  float* row;    // this warp's row
+  float* stage;  // this warp's [32][kRecFloats]
+  float* rows;   // all warps' rows
+  int ncols, nt, mat0, light0, nl;
+
+  // Every thread of the block must construct it (it synchronises).
+  __device__ BlockSums(float* smem, const Params& prm, int ncols_)
+      : ncols(ncols_), nt(prm.nt), mat0(1 + 4 * prm.ns),
+        light0(1 + 4 * prm.ns + 9 * prm.m), nl(prm.nl) {
+    rows = smem;
+    row = rows + (threadIdx.x >> 5) * ncols;
+    stage = rows + kAdjWarps * ncols + (threadIdx.x >> 5) * 32 * kRecFloats;
+    for (int i = threadIdx.x; i < kAdjWarps * ncols; i += kAdjThreads)
+      rows[i] = 0.0f;
+    __syncthreads();
   }
-  // A new record for node c, its cotangents zeroed.
-  __device__ int add(const NodeConst& c) {
-    bik[n] = c.bik;
-    mid[n] = c.mid;
-    for (int k = 0; k < 4; ++k) dsph[n][k] = 0.0f;
-    for (int k = 0; k < 9; ++k) dmat[n][k] = 0.0f;
-    return n++;
+
+  // The sum of `k` floats at offset `off` of the records of `group` (a lane
+  // mask holding this lane, its lowest), into dst.
+  template <int N>
+  __device__ __forceinline__ void group_add(unsigned group, int off,
+                                            float* dst) {
+    const int lane = threadIdx.x & 31;
+    const float* mine = stage + lane * kRecFloats + off;
+    float a[N];
+    for (int k = 0; k < N; ++k) a[k] = mine[k];
+    for (unsigned m = group & (group - 1u); m != 0u; m &= m - 1u) {
+      const float* o = stage + (__ffs(m) - 1) * kRecFloats + off;
+      for (int k = 0; k < N; ++k) a[k] += o[k];
+    }
+    for (int k = 0; k < N; ++k) dst[k] += a[k];
+  }
+
+  // A full warp of one id: a butterfly over the lanes' own values.
+  template <int N>
+  __device__ __forceinline__ void warp_add(const float* x, float* dst) {
+    float a[N];
+    for (int k = 0; k < N; ++k) a[k] = warp_sum(x[k]);
+    if ((threadIdx.x & 31) == 0)
+      for (int k = 0; k < N; ++k) dst[k] += a[k];
+  }
+
+  // Node c's cotangents dsph (its sphere's centre and radius) and dmat (its
+  // material's ambient, diffuse, specular) from the lanes with `on`.
+  __device__ void add(bool on, const NodeConst& c, const float dsph[4],
+                      const float dmat[9]) {
+    if (__ballot_sync(kFullMask, on) == 0u) return;
+    const int lane = threadIdx.x & 31;
+    const int sk = (on && c.bik >= nt) ? c.bik - nt : -1;
+    const int mk = on ? c.mid : -1;
+    const unsigned sg = __match_any_sync(kFullMask, sk);
+    const unsigned mg = __match_any_sync(kFullMask, mk);
+    if (sg == kFullMask && mg == kFullMask) {  // warp-uniform
+      if (sk >= 0) warp_add<4>(dsph, row + 1 + 4 * sk);
+      warp_add<9>(dmat, row + mat0 + 9 * mk);
+      __syncwarp();
+      return;
+    }
+    if (on) {
+      float* mine = stage + lane * kRecFloats;
+      for (int k = 0; k < 4; ++k) mine[k] = dsph[k];
+      for (int k = 0; k < 9; ++k) mine[4 + k] = dmat[k];
+    }
+    __syncwarp();
+    if (sk >= 0 && lane == __ffs(sg) - 1)
+      group_add<4>(sg, 0, row + 1 + 4 * sk);
+    if (mk >= 0 && lane == __ffs(mg) - 1)
+      group_add<9>(mg, 4, row + mat0 + 9 * mk);
+    __syncwarp();
+  }
+
+  // Every thread of the block must call it, once, after its last add().
+  __device__ void finish(float loss, float (*d_lp)[3],
+                         float* __restrict__ out) {
+    const bool lead = (threadIdx.x & 31) == 0;
+    loss = warp_sum(loss);
+    if (lead) row[0] += loss;
+    for (int li = 0; li < nl; ++li)
+      for (int k = 0; k < 3; ++k) {
+        const float x = warp_sum(d_lp[li][k]);
+        if (lead) row[light0 + 3 * li + k] += x;
+      }
+    __syncthreads();
+    for (int c = threadIdx.x; c < ncols; c += kAdjThreads) {
+      float acc = 0.0f;
+      for (int w = 0; w < kAdjWarps; ++w) acc += rows[w * ncols + c];
+      out[c] = acc;
+    }
   }
 };
+
+// Shared memory of an adjoint kernel's block: the tables, then BlockSums'.
+inline size_t adjoint_smem_bytes(const AdjParams& ap) {
+  return (table_floats(ap.prm) + kAdjWarps * ap.ncols +
+          kAdjWarps * 32 * kRecFloats) *
+         sizeof(float);
+}
+
+// Chunks of 256 entries over n items.
+__host__ __device__ __forceinline__ int adjoint_chunks(int n) {
+  return (n + kAdjThreads - 1) / kAdjThreads;
+}
+
+// Blocks of an adjoint launch over num_pixels pixels: one a chunk, at least
+// one, at most kAdjGridCap (kernels/adjoint_fused.py::adjoint_blocks).
+inline int adjoint_blocks(int num_pixels) {
+  const int c = adjoint_chunks(num_pixels);
+  return c < 1 ? 1 : (c > kAdjGridCap ? kAdjGridCap : c);
+}
 
 // Replay adjoint of the bounce chain of one pixel (the JAX
 // _adjoint_tile_body, :387-635): L hit levels with topology cst[0..L-1],
 // primary direction v from the eye, image cotangent g.  A primal pass keeps
 // each level's input ray (o, v) and throughput only; the reverse pass, from
 // the last hit level down to 0, re-derives the level's record from its
-// (o, v) (the JAX kernel's ov_at route) and applies the node adjoint.
-// Level lv's cotangents go to record lv.
+// (o, v) (the JAX kernel's ov_at route) and applies the node adjoint.  The
+// reverse steps are warp-uniform (to the warp's largest L; a lane with
+// fewer levels, or none, idles) so that each step's nodes go to sums.add
+// together; the light cotangents add into the thread's d_lp.  Every lane
+// of the warp must call it.
 template <bool WANT_TRANS>
 __device__ __forceinline__ void chain_adjoint(const Scene& s,
                                               const Params& prm,
                                               const NodeConst* cst, int L,
                                               float vx, float vy, float vz,
                                               const float g[3],
-                                              GradRecs<kMaxLevels>& out) {
+                                              BlockSums& sums,
+                                              float (*d_lp)[3]) {
   // ---- primal pass: each level's input ray and throughput ----
   float O[kMaxLevels][3], V[kMaxLevels][3], T[kMaxLevels][3];
   {
@@ -370,30 +504,39 @@ __device__ __forceinline__ void chain_adjoint(const Scene& s,
     }
   }
 
-  // ---- reverse pass, last hit level down to 0 ----
-  for (int lv = 0; lv < L; ++lv) out.add(cst[lv]);
+  // ---- reverse pass, last hit level down to 0, a level a step ----
+  const int steps = __reduce_max_sync(kFullMask, L);
   float pbx = 0.0f, pby = 0.0f, pbz = 0.0f;  // cotangent of the next o
   float vbx = 0.0f, vby = 0.0f, vbz = 0.0f;  // cotangent of the next v
-  for (int lv = L - 1; lv >= 0; --lv) {
-    const bool has_child = lv < prm.depth;
-    NodeRec r;
-    node_primal(s, cst[lv], O[lv][0], O[lv][1], O[lv][2], V[lv][0],
-                V[lv][1], V[lv][2], WANT_TRANS && has_child, &r);
-    Cot b = {pbx, pby, pbz, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
-             0.0f, 0.0f, 0.0f, 0.0f};
-    if (has_child) {
-      // v_next = take_t ? t : r (the chain's child select)
-      const bool take_t =
-          WANT_TRANS && s.mat[cst[lv].mid * MAT_COLS + 13] > 0.5f;
-      if constexpr (WANT_TRANS) {
-        snell_reverse(r, take_t ? vbx : 0.0f, take_t ? vby : 0.0f,
-                      take_t ? vbz : 0.0f, &b);
+  for (int step = 0; step < steps; ++step) {
+    const int lv = L - 1 - step;
+    float dsph[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float dmat[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    NodeConst c = {-1, -1, 0u};
+    if (lv >= 0) {
+      c = cst[lv];
+      const bool has_child = lv < prm.depth;
+      NodeRec r;
+      node_primal(s, c, O[lv][0], O[lv][1], O[lv][2], V[lv][0], V[lv][1],
+                  V[lv][2], WANT_TRANS && has_child, &r);
+      Cot b = {pbx, pby, pbz, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+               0.0f, 0.0f, 0.0f, 0.0f};
+      if (has_child) {
+        // v_next = take_t ? t : r (the chain's child select)
+        const bool take_t =
+            WANT_TRANS && s.mat[c.mid * MAT_COLS + 13] > 0.5f;
+        if constexpr (WANT_TRANS) {
+          snell_reverse(r, take_t ? vbx : 0.0f, take_t ? vby : 0.0f,
+                        take_t ? vbz : 0.0f, &b);
+        }
+        if (!take_t) { b.rx = vbx; b.ry = vby; b.rz = vbz; }
       }
-      if (!take_t) { b.rx = vbx; b.ry = vby; b.rz = vbz; }
+      const float g3[3] = {T[lv][0] * g[0], T[lv][1] * g[1],
+                           T[lv][2] * g[2]};
+      node_reverse(s, c, r, g3, b, dsph, dmat, d_lp, &pbx, &pby, &pbz, &vbx,
+                   &vby, &vbz);
     }
-    const float g3[3] = {T[lv][0] * g[0], T[lv][1] * g[1], T[lv][2] * g[2]};
-    node_reverse(s, cst[lv], r, g3, b, out.dsph[lv], out.dmat[lv], out.d_lp,
-                 &pbx, &pby, &pbz, &vbx, &vby, &vbz);
+    sums.add(lv >= 0, c, dsph, dmat);
   }
 }
 
@@ -412,137 +555,95 @@ struct TreeFrame {
 // Replay adjoint of the full bounce tree of one pixel (the JAX
 // _adjoint_tree_tile_body, :638-793), from the topology records recs[] of
 // its 2^(depth+1)-1 preorder nodes (a node that misses holds bik = -1 and
-// nothing else is read of it), for depth <= MAX_DEPTH.
-// The interleaved primal/reverse recursion becomes an explicit stack of at
-// most depth+1 frames: a node runs its primal, visits its transmitted then
-// its reflected subtree, applies snell_reverse to the children's direction
-// cotangents and then its own node_reverse.  A child is visited only where
-// its gate (take_t on the transmitted edge, refl_ok on the reflected one,
-// both on a hit) is set and it hits: any other child adds exactly zero.
-// Each hit node's cotangents go to one record, in the order nodes finish.
+// nothing else is read of it), for depth <= MAX_DEPTH; `live` false runs
+// nothing.  The interleaved primal/reverse recursion becomes an explicit
+// stack of at most depth+1 frames: a node runs its primal, visits its
+// transmitted then its reflected subtree, applies snell_reverse to the
+// children's direction cotangents and then its own node_reverse.  A child
+// is visited only where its gate (take_t on the transmitted edge, refl_ok
+// on the reflected one, both on a hit) is set and it hits: any other child
+// adds exactly zero.  Each outer step is warp-uniform (while any lane has a
+// frame): a lane descends until one node finishes, and the step's finished
+// nodes go to sums.add together, so no node's cotangents are kept.  Every
+// lane of the warp must call it.
 template <bool WANT_TRANS, int MAX_DEPTH>
 __device__ __forceinline__ void tree_adjoint(
-    const Scene& s, const Params& prm, const NodeConst* recs, float vx,
-    float vy, float vz, const float g[3],
-    GradRecs<tree_nodes(MAX_DEPTH)>& out) {
+    const Scene& s, const Params& prm, const TreeRec* recs, bool live,
+    float vx, float vy, float vz, const float g[3], BlockSums& sums,
+    float (*d_lp)[3]) {
   const int depth = prm.depth;
   TreeFrame st[MAX_DEPTH + 1];
   int sp = 0;
-  if (recs[0].bik < 0) return;  // the primary ray misses: nothing to add
-  {
+  if (live && recs[0].bik >= 0) {  // else the primary ray misses: nothing
     TreeFrame& f = st[sp++];
     f.o[0] = prm.eye_x; f.o[1] = prm.eye_y; f.o[2] = prm.eye_z;
     f.v[0] = vx; f.v[1] = vy; f.v[2] = vz;
     f.w[0] = f.w[1] = f.w[2] = 1.0f;
     f.idx = 0; f.level = 0; f.stage = 0;
-    f.c = recs[0];
+    f.c = unpack_rec(recs[0]);
     for (int k = 0; k < 3; ++k) f.ob[k] = f.tb[k] = f.rb[k] = 0.0f;
   }
-  while (sp > 0) {
-    TreeFrame& f = st[sp - 1];
-    const float* mt = s.mat + f.c.mid * MAT_COLS;
-    if (f.level < depth && f.stage < 2) {
-      // visit the next child: the transmitted one, then the reflected one
-      const bool trans = f.stage == 0;
-      ++f.stage;
-      if (!(mt[trans ? 13 : 14] > 0.5f)) continue;  // gate 0
-      const int cidx = trans ? f.idx + 1 : f.idx + (1 << (depth - f.level));
-      if (recs[cidx].bik < 0) continue;  // the child misses
-      const NodeConst cc = recs[cidx];
+  while (__any_sync(kFullMask, sp > 0)) {
+    float dsph[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float dmat[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    NodeConst done = {-1, -1, 0u};
+    bool on = false;
+    while (sp > 0) {
+      TreeFrame& f = st[sp - 1];
+      const float* mt = s.mat + f.c.mid * MAT_COLS;
+      if (f.level < depth && f.stage < 2) {
+        // visit the next child: the transmitted one, then the reflected one
+        const bool trans = f.stage == 0;
+        ++f.stage;
+        if (!(mt[trans ? 13 : 14] > 0.5f)) continue;  // gate 0
+        const int cidx =
+            trans ? f.idx + 1 : f.idx + (1 << (depth - f.level));
+        if (recs[cidx].bik < 0) continue;  // the child misses
+        const NodeConst cc = unpack_rec(recs[cidx]);
+        NodeRec r;
+        node_primal(s, f.c, f.o[0], f.o[1], f.o[2], f.v[0], f.v[1], f.v[2],
+                    WANT_TRANS, &r);
+        TreeFrame& ch = st[sp++];
+        ch.o[0] = r.px; ch.o[1] = r.py; ch.o[2] = r.pz;
+        ch.v[0] = trans ? r.tx : r.rx;
+        ch.v[1] = trans ? r.ty : r.ry;
+        ch.v[2] = trans ? r.tz : r.rz;
+        for (int k = 0; k < 3; ++k) {
+          ch.w[k] = f.w[k] * (trans ? mt[9 + k] : 1.0f - mt[9 + k]);
+          ch.ob[k] = ch.tb[k] = ch.rb[k] = 0.0f;
+        }
+        ch.idx = cidx; ch.level = f.level + 1; ch.stage = 0;
+        ch.c = cc;
+        continue;
+      }
+      // reverse the node, its children's cotangents in hand
+      const bool has_child = f.level < depth;
       NodeRec r;
       node_primal(s, f.c, f.o[0], f.o[1], f.o[2], f.v[0], f.v[1], f.v[2],
-                  WANT_TRANS, &r);
-      TreeFrame& ch = st[sp++];
-      ch.o[0] = r.px; ch.o[1] = r.py; ch.o[2] = r.pz;
-      ch.v[0] = trans ? r.tx : r.rx;
-      ch.v[1] = trans ? r.ty : r.ry;
-      ch.v[2] = trans ? r.tz : r.rz;
-      for (int k = 0; k < 3; ++k) {
-        ch.w[k] = f.w[k] * (trans ? mt[9 + k] : 1.0f - mt[9 + k]);
-        ch.ob[k] = ch.tb[k] = ch.rb[k] = 0.0f;
+                  WANT_TRANS && has_child, &r);
+      Cot b = {f.ob[0], f.ob[1], f.ob[2], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+               0.0f, f.rb[0], f.rb[1], f.rb[2], 0.0f};
+      if constexpr (WANT_TRANS) {
+        if (has_child) snell_reverse(r, f.tb[0], f.tb[1], f.tb[2], &b);
       }
-      ch.idx = cidx; ch.level = f.level + 1; ch.stage = 0;
-      ch.c = cc;
-      continue;
-    }
-    // reverse the node, its children's cotangents in hand
-    const bool has_child = f.level < depth;
-    NodeRec r;
-    node_primal(s, f.c, f.o[0], f.o[1], f.o[2], f.v[0], f.v[1], f.v[2],
-                WANT_TRANS && has_child, &r);
-    Cot b = {f.ob[0], f.ob[1], f.ob[2], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
-             f.rb[0], f.rb[1], f.rb[2], 0.0f};
-    if constexpr (WANT_TRANS) {
-      if (has_child) snell_reverse(r, f.tb[0], f.tb[1], f.tb[2], &b);
-    }
-    const int k = out.add(f.c);
-    const float g3[3] = {f.w[0] * g[0], f.w[1] * g[1], f.w[2] * g[2]};
-    float ob[3], vb[3];
-    node_reverse(s, f.c, r, g3, b, out.dsph[k], out.dmat[k], out.d_lp, &ob[0],
-                 &ob[1], &ob[2], &vb[0], &vb[1], &vb[2]);
-    if (--sp > 0) {
-      TreeFrame& pa = st[sp - 1];
-      float* dir_b = pa.stage == 1 ? pa.tb : pa.rb;
-      for (int q = 0; q < 3; ++q) {
-        pa.ob[q] += ob[q];
-        dir_b[q] = vb[q];
+      const float g3[3] = {f.w[0] * g[0], f.w[1] * g[1], f.w[2] * g[2]};
+      float ob[3], vb[3];
+      node_reverse(s, f.c, r, g3, b, dsph, dmat, d_lp, &ob[0], &ob[1],
+                   &ob[2], &vb[0], &vb[1], &vb[2]);
+      done = f.c;
+      on = true;
+      if (--sp > 0) {
+        TreeFrame& pa = st[sp - 1];
+        float* dir_b = pa.stage == 1 ? pa.tb : pa.rb;
+        for (int q = 0; q < 3; ++q) {
+          pa.ob[q] += ob[q];
+          dir_b[q] = vb[q];
+        }
       }
+      break;
     }
+    sums.add(on, done, dsph, dmat);
   }
-}
-
-// Sum over the 32 lanes; every lane gets the same, order-fixed value.
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// The block's sums of every gradient column, in a fixed order: per thread,
-// the records of each entity in record order; then a warp butterfly; then
-// the warps in turn.  Writes one row [loss | sph(ns x 4) | mat(m x 9) |
-// light(nl x 3)] of ncols to `row`.  wsum is [kAdjWarps][ncols] of shared
-// memory.  Every thread of the block must call it.
-template <int N>
-__device__ __forceinline__ void block_column_sums(const Scene& s, float loss,
-                                                  const GradRecs<N>& gr,
-                                                  float* wsum, int ncols,
-                                                  float* __restrict__ row) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int col = 0;
-  auto put = [&](float x) {
-    x = warp_sum(x);
-    if (lane == 0) wsum[warp * ncols + col] = x;
-    ++col;
-  };
-  put(loss);
-  for (int i = 0; i < s.ns; ++i) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int q = 0; q < gr.n; ++q)
-      if (gr.bik[q] == s.nt + i)
-        for (int k = 0; k < 4; ++k) acc[k] += gr.dsph[q][k];
-    for (int k = 0; k < 4; ++k) put(acc[k]);
-  }
-  for (int j = 0; j < s.m; ++j) {
-    float acc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int q = 0; q < gr.n; ++q)
-      if (gr.mid[q] == j)
-        for (int k = 0; k < 9; ++k) acc[k] += gr.dmat[q][k];
-    for (int k = 0; k < 9; ++k) put(acc[k]);
-  }
-  for (int li = 0; li < s.nl; ++li)
-    for (int k = 0; k < 3; ++k) put(gr.d_lp[li][k]);
-  __syncthreads();
-  for (int c = threadIdx.x; c < ncols; c += kAdjThreads) {
-    float acc = 0.0f;
-    for (int w = 0; w < kAdjWarps; ++w) acc += wsum[w * ncols + c];
-    row[c] = acc;
-  }
-}
-
-// Shared memory of an adjoint kernel's block: the tables, then wsum.
-inline size_t adjoint_smem_bytes(const AdjParams& ap) {
-  return (table_floats(ap.prm) + kAdjWarps * ap.ncols) * sizeof(float);
 }
 
 }  // namespace rtfs

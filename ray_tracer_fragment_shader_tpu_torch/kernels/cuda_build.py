@@ -60,27 +60,32 @@ _ENTRIES = {
     # + res (the unpacked residual planes)
     "rtfs_render_chain_residuals": _RENDER_ARGS + [_P, _P],
     "rtfs_render_tree_residuals": _RENDER_ARGS + [_P, _P],
-    # tables; ns nt m nl; v img target mask pk; num_pixels; eye; depth;
-    # atten g_scale bw_bi bw_mid; want_trans; partial num_blocks; stream
-    "rtfs_adjoint_packed": ([_P] + [_I] * 4 + [_P] * 5 + [_I] + [_F] * 3
-                            + [_I] + [_F] * 4 + [_I] + [_P, _I, _P]),
-    # partial num_blocks num_cols out stream
-    "rtfs_adjoint_reduce": [_P, _I, _I, _P, _P],
+    # tables; ns nt m nl; v img target mask pk; ids count; num_pixels; eye;
+    # depth; atten g_scale bw_bi bw_mid; want_trans; partial num_blocks;
+    # stream
+    "rtfs_adjoint_packed": ([_P] + [_I] * 4 + [_P] * 5 + [_P] * 2 + [_I]
+                            + [_F] * 3 + [_I] + [_F] * 4 + [_I]
+                            + [_P, _I, _P]),
+    # img target mask g; g_scale; num_pixels; ballots counts offsets
+    # loss_rows ids count; stream
+    "rtfs_live_list": [_P] * 4 + [_F, _I] + [_P] * 6 + [_P],
+    # partial num_rows ns m nl count loss_rows num_loss_rows out stream
+    "rtfs_adjoint_reduce": [_P] + [_I] * 4 + [_P, _P, _I, _P, _P],
     # tables; ns nt m nl; v target mask; num_pixels; eye; depth; small
     # atten; white_id black_id want_trans tree bf16; g_scale; partial
     # num_blocks; stream
     "rtfs_fused_adjoint": ([_P] + [_I] * 4 + [_P] * 3 + [_I] + [_F] * 3
                            + [_I] + [_F] * 2 + [_I] * 5 + [_F]
                            + [_P, _I, _P]),
-    # as rtfs_fused_adjoint with the cotangent g for target and mask, and
-    # no g_scale
-    "rtfs_recompute_adjoint": ([_P] + [_I] * 4 + [_P] * 2 + [_I] + [_F] * 3
-                               + [_I] + [_F] * 2 + [_I] * 5
+    # as rtfs_fused_adjoint with the cotangent g and the live list (ids
+    # count) for target and mask, and no g_scale
+    "rtfs_recompute_adjoint": ([_P] + [_I] * 4 + [_P] * 2 + [_P] * 2 + [_I]
+                               + [_F] * 3 + [_I] + [_F] * 2 + [_I] * 5
                                + [_P, _I, _P]),
-    # tables; ns nt m nl; v g bi mid lit; num_pixels; eye; depth; atten;
-    # want_trans; partial num_blocks; stream
-    "rtfs_fit_grads": ([_P] + [_I] * 4 + [_P] * 5 + [_I] + [_F] * 3 + [_I]
-                       + [_F] + [_I] + [_P, _I, _P]),
+    # tables; ns nt m nl; v g bi mid lit; ids count; num_pixels; eye;
+    # depth; atten; want_trans; partial num_blocks; stream
+    "rtfs_fit_grads": ([_P] + [_I] * 4 + [_P] * 5 + [_P] * 2 + [_I]
+                       + [_F] * 3 + [_I] + [_F] + [_I] + [_P, _I, _P]),
 }
 #: argtypes of each probe library's C entries: x out n iters, the
 #: instantiation (K9: nc; P1: inject nc; P2: inject bf16 nc), blocks,

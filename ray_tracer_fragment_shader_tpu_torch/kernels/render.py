@@ -621,6 +621,18 @@ def render_tree_ref(tables, v, eye, *, nl: int, depth: int, small: float,
     res = dict(bi=[], mid=[], lit=[]) if residuals else None
 
     def node(o, d, thr, excl, alive, level, col):
+        if not bool(alive.any()):
+            # every ray of the subtree is masked to zero: it adds nothing,
+            # and its nodes hold the dead values (a host sync a node on a
+            # CUDA tensor, where this plain version runs only as a check)
+            if residuals:
+                dead_bi, mid0, lit1 = ops.full(-1.0), ops.full(0.0), \
+                    ops.full(1.0)
+                for _ in range(n_tree_nodes(depth - level)):
+                    res["bi"].append(dead_bi)
+                    res["mid"].append(mid0)
+                    res["lit"].append([lit1] * nl)
+            return col
         lits = [] if residuals else None
         hitm, bi, p, mats, dirs, col, mid = ops.node(*o, *d, excl, alive, thr,
                                                      col, want_trans, lits)

@@ -141,6 +141,28 @@ def fractional_glass(size: int = 128, depth: int = 2,
                                            max_depth=depth, samples=1)
 
 
+def glass_cube(size: int = 128, depth: int = 7,
+               dtype=np.float32) -> Preset:
+    """A cube of fractional glass (T=0.5, refraction 0.9) beside an opaque
+    sphere: a ray that enters the cube meets its faces one triangle after
+    another, and every hit spawns a transmitted and a reflected child, so
+    its bounce trees stay alive to the deepest levels (at 16^2 and depth
+    10, hits on every level; ``fractional_glass``'s end by level 3).  The
+    scene of the deep-tree fits (K6/K7 at depths 7-10); not a CLI
+    preset."""
+    glass = Material(ambient=(0.02, 0.02, 0.02), diffuse=(0.1, 0.1, 0.2),
+                     specular=(0.4, 0.4, 0.4), transparency=(0.5, 0.5, 0.5),
+                     refraction=0.9)
+    scene = (SceneBuilder()
+             .add_checkerboard()
+             .add_cube("d5", material=glass)
+             .add_sphere("c3")
+             .add_light("b6")
+             .build(dtype=dtype))
+    return scene, _cam(size), RenderConfig(width=size, height=size,
+                                           max_depth=depth, samples=1)
+
+
 def glass_chain(size: int = 128, depth: int = 1,
                 dtype=np.float32) -> Preset:
     """A fully transparent glass sphere (T=1, refraction 0.9) beside an

@@ -17,18 +17,30 @@ from typing import Callable, Dict, List
 import torch
 
 
+#: SM cycles a second, for sizing the device-side sleep (the H100 SXM's
+#: 1980 MHz boost clock; a slower clock only lengthens the sleep)
+SLEEP_CYCLES_PER_S = 1.98e9
+
+
 def time_ms(fn, reps: int) -> float:
     """CUDA-event time of one call of ``fn``, averaged over ``reps``.  A
     device-side sleep queued first lets the host enqueue every launch
     before the start event fires, so a kernel shorter than its host-side
     launch cost is timed on the device alone (without it the events time
-    the host's launch gaps).  ``fn`` that synchronises (the plain
-    versions) is timed with its host cost, as a caller sees it."""
+    the host's launch gaps).  The sleep lasts at least 5 ms and at least
+    three times the host's enqueue time of the ``reps`` calls (measured on
+    one call, up to 0.2 s).  ``fn`` that synchronises (the plain versions)
+    is timed with its host cost, as a caller sees it."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_s = min(max(5e-3, 3.0 * reps * host_s), 0.2)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10_000_000)  # ~5 ms of SM cycles
+    torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()

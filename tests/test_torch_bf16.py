@@ -338,8 +338,8 @@ A1_SCENES = {
     "overflow_fractional": lambda size: presets.pack_overflow(size=size),
     "overflow_chain": lambda size: presets.pack_overflow(size=size,
                                                          fractional=False),
-    "tree_depth6": lambda size: presets.fractional_glass(
-        size=size, depth=AF.TREE_ADJOINT_MAX_DEPTH),
+    "tree_depth6": lambda size: presets.fractional_glass(size=size,
+                                                         depth=6),
 }
 
 
@@ -351,8 +351,8 @@ def test_a1_scenes_are_past_the_pack_and_the_old_cap():
     assert not scene.chain_exact
     with pytest.raises(ValueError, match="packed residual"):
         K.pack_widths(*counts)
-    assert AF.TREE_ADJOINT_MAX_DEPTH > 5
-    assert AF.TREE_ADJOINT_DEPTH_CAPS[0] == 5
+    assert AF.TREE_ADJOINT_DEPTH_CAPS == (5, 7, 10)
+    assert AF.TREE_ADJOINT_MAX_DEPTH == K.TREE_MAX_DEPTH
 
 
 @pytest.mark.parametrize("name", list(A1_SCENES))

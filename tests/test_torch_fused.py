@@ -509,8 +509,8 @@ def test_fit_step_with_a_jittered_config_raises_as_jax_does():
 def test_tree_depth_above_the_cap_raises():
     scene, camera, cfg = port_fractional(AF.TREE_ADJOINT_MAX_DEPTH + 1)
     target = torch.zeros(SIZE, SIZE, 3)
-    cap = (f"tree depth <= {AF.TREE_ADJOINT_MAX_DEPTH} .* B of local "
-           f"memory")
+    cap = (f"tree depth <= {AF.TREE_ADJOINT_MAX_DEPTH} \\(the tree "
+           f"forward's own limit")
     with pytest.raises(ValueError, match=cap):
         AF.fit_value_and_grad(FitParams.from_scene(scene), scene, camera, cfg,
                               target, device=CPU)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tracer_fragment_shader_tpu_torch import adjoint_ab
 from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
 from ray_tracer_fragment_shader_tpu_torch.ops.rays import (Camera,
                                                            primary_rays,
@@ -645,3 +646,74 @@ def test_bf16_entry_points_run_on_the_card_by_default(cuda):
     assert K.LAUNCHES["render_packed_bf16"] == 1
     assert K.LAUNCHES["render_chain"] == K.LAUNCHES["render_packed"] == 0
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+# ---- the compacted, sparse adjoints: K4, K6, K7, K8 on edge cotangents ---
+
+SPARSE_SCENES = {
+    "full_reflective": lambda n: presets.full_reflective(size=n, depth=3),
+    "procedural_spheres": lambda n: presets.procedural_spheres(n=64, size=n,
+                                                               depth=3),
+    "reference_demo": lambda n: (lambda s, c, f: (s, c, dataclasses.replace(
+        f, width=n, height=n, samples=1)))(*presets.reference_demo()),
+    "fractional_glass": lambda n: presets.fractional_glass(size=n, depth=3),
+    "pack_overflow": lambda n: presets.pack_overflow(size=n),
+}
+#: the demo at 128^2: at 64^2 its moved sphere changes no pixel, so its real
+#: cotangent is the all-zero case, where K6's loss (0) would be held
+#: against the last bits of its plain version's own forward
+SPARSE_SIZE = {"reference_demo": 128}
+
+
+@pytest.mark.parametrize("name", list(SPARSE_SCENES))
+@pytest.mark.parametrize("cot", ["real", "zero", "one"])
+def test_sparse_adjoints_match_plain_and_are_deterministic(cuda, name, cot):
+    """adjoint_ab.hold: every adjoint twice bit-identical, within 1e-3 of
+    max|plain| (loss 1e-5 relative); all-zero: tables exactly 0, K4's loss
+    the full sum; one live pixel (the hit pixel nearest the centre): some
+    plain table nonzero; K8 equal to K4 bit for bit."""
+    preset = SPARSE_SCENES[name](SPARSE_SIZE.get(name, N))
+    adjoint_ab.hold(adjoint_ab.inputs(preset, cuda), cot)
+
+
+def test_sparse_adjoints_on_a_ragged_frame(cuda):
+    """57^2 = 3249 pixels, not a multiple of the 256-thread block."""
+    for name in ("full_reflective", "fractional_glass"):
+        adjoint_ab.hold(adjoint_ab.inputs(SPARSE_SCENES[name](57), cuda),
+                        "real")
+
+
+@pytest.mark.parametrize("depth", [7, 8, 10])
+def test_deep_tree_k6_k7_match_plain(cuda, depth):
+    """K6 and K7 on ``presets.glass_cube`` (trees that hit at every level)
+    at depth 7, 8 and 10, 64^2: within 1e-3 of max|plain|, twice
+    bit-identical; depth 11 refused."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    x = adjoint_ab.inputs(presets.glass_cube(size=N, depth=depth), cuda)
+    assert x["tree"] and x["kw"]["depth"] == depth
+    adjoint_ab.hold(x, "real")
+    with pytest.raises(ValueError, match="tree depth <= 10"):
+        AF.fused_adjoint(x["tables"], x["v"], x["eye"], x["target"],
+                         x["mask"], tree=True, g_scale=1.0,
+                         **dict(x["kw"], depth=11))
+
+
+def test_compacted_wrappers_do_not_synchronise(cuda):
+    """K4, K7 and K8 build their live list and run on it with no host
+    synchronisation: their wrappers pass under set_sync_debug_mode
+    ("error")."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    calls = adjoint_ab.calls(adjoint_ab.inputs(
+        SPARSE_SCENES["full_reflective"](N), cuda), "real")
+    for kname in ("adjoint_packed", "recompute_adjoint", "fit_grads"):
+        adjoint_ab.run(AF, calls[kname])  # built, attributes set
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for kname in ("adjoint_packed", "recompute_adjoint", "fit_grads"):
+            adjoint_ab.run(AF, calls[kname])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -189,3 +189,37 @@ def test_bf16_variant_sources_entries_and_ab_script():
     assert res.stdout.strip() == "[]"
     with open(os.path.join(PORT_DIR, "bf16_ab.py")) as f:
         assert not re.search(r"^\s*(try\s*:|except\b)", f.read(), re.M)
+
+
+def test_compacted_adjoints_share_the_live_list_and_add_no_floats_atomically():
+    """K4, K7 and K8 take the live list (ids, count) that rtfs_live_list
+    builds; no adjoint source adds floats atomically; the wrappers' block
+    cap, stage size and tree caps are the sources'; adjoint_ab.py holds no
+    try/except."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import cuda_build
+    assert "rtfs_live_list" in cuda_build._ENTRIES
+    csrc = os.path.join(PORT_DIR, "kernels", "csrc")
+    srcs = {}
+    for name in ("adjoint_ops.cuh", "adjoint_packed.cu", "adjoint_fused.cu",
+                 "fit_grads.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            srcs[name] = f.read()
+        assert "atomicAdd" not in srcs[name], name
+    for name, entry in (("adjoint_packed.cu", "rtfs_adjoint_packed"),
+                        ("adjoint_fused.cu", "rtfs_recompute_adjoint"),
+                        ("fit_grads.cu", "rtfs_fit_grads")):
+        sig = re.search(rf'extern "C" int {entry}\((.*?)\)', srcs[name],
+                        re.S).group(1)
+        assert re.search(r"const int\* ids,\s*const int\* count", sig), entry
+    ops = srcs["adjoint_ops.cuh"]
+    assert re.search(rf"kAdjGridCap = {AF.ADJOINT_GRID_CAP};", ops)
+    assert re.search(r"kRecFloats = 13;", ops)
+    assert AF.ADJOINT_STAGE_FLOATS == (AF.ADJOINT_THREADS // 32) * 32 * 13
+    caps = re.search(r"kTreeAdjDepthCaps\[\] = \{([\d, ]+)\}",
+                     srcs["adjoint_fused.cu"]).group(1)
+    assert tuple(int(c) for c in caps.split(",")) == \
+        AF.TREE_ADJOINT_DEPTH_CAPS
+    with open(os.path.join(PORT_DIR, "adjoint_ab.py")) as f:
+        assert not re.search(r"^\s*(try\s*:|except\b)", f.read(), re.M)
