@@ -160,6 +160,18 @@ Phases (each raises on failure; the script then exits non-zero):
    config 3 fwd+bwd step (two-phase and split), the 500^2 d5 16-spp
    frame differentiated and ``render_image_diff`` on the tree
    (chiprun_out/adjoint_ab_h100.json).
+16. the chain forward as redesigned for the card (``chain_phase``): the
+   SASS census of its sweep loops (instructions a primitive test on the
+   fast trip, by class), ptxas's registers and spills and the blocks a SM
+   holds (``forward_ab.py``); K2, K3 and residual K2, f32 and bf16, twice
+   bit-identical and against their plain versions (phase 2's budget,
+   planes equal) on config 3, config 5, glass_chain (nearest-occluder
+   shadows), pack_overflow (15 lights: K2 and residual K2) and a 57^2
+   frame (a ragged last warp), K3's image equal to K2's and residual K2's
+   bit for bit; the sweeps' lane efficiency at config 5 2048^2
+   (``opcount.lane_efficiency``); and, with the counters zeroed, a config
+   5 2048^2 frame (K2, held against its plain version) and a two-phase
+   fit step there (K3).
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.  The bf16 rows
@@ -1047,6 +1059,144 @@ def sparse_phase(dev, card, launches, errs):
     check(adjoint_ab.main(["--out", os.path.join(REPO, adjoint_ab.OUT)])
           == 0, "adjoint_ab failed")
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+
+def chain_phase(dev, card, launches, errs, fracs, k9):
+    """Phase 16: the chain forward as redesigned for this card (the
+    sweeps' gates as predicates, the packed and bf16 residual forms built
+    for 4 blocks a SM).  Adds to ``launches``, ``errs`` and ``fracs`` of
+    K2, K3, residual K2 and their bf16 rows; prices K3 at config 5 2048^2
+    at ``k9``'s (phase 13) chain-forward rate."""
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch import adjoint_ab, forward_ab
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import Camera
+    from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    from ray_tracer_fragment_shader_tpu_torch.utils import opcount
+    from ray_tracer_fragment_shader_tpu_torch.utils import roofline as RL
+    from ray_tracer_fragment_shader_tpu_torch.utils.timing import time_ms
+    t16 = time.perf_counter()
+    M = adjoint_ab.modules()
+
+    # -- the SASS census of the sweeps, ptxas's registers and spills
+    census = forward_ab.chain_census(M, os.path.join(OUT_DIR, "chain_sass"))
+    forward_ab.print_census("chain kernel", census, card)
+    for key in forward_ab.CENSUS_KEYS:
+        check(any(row["per_test"] for row in census["loops"].get(key, [])),
+              f"no sweep loop found in render_chain_kernel<{key}>")
+
+    # -- K2, K3 and residual K2 against their plain versions
+    n = 128
+    cases = [
+        ("config 3 d3", presets.full_reflective(size=n, depth=3)),
+        ("config 5 d3", presets.procedural_spheres(n=64, size=n, depth=3)),
+        ("glass_chain d3", presets.glass_chain(size=n, depth=3)),
+        ("pack_overflow d1 (chain, 15 lights)",
+         presets.pack_overflow(size=n, fractional=False)),
+        ("config 5 d3 57^2 (ragged last warp)",
+         presets.procedural_spheres(n=64, size=57, depth=3))]
+    refs = {"render_chain": K.render_chain_ref,
+            "render_packed": K.render_packed_ref,
+            "render_chain_residuals": lambda *a, **kw:
+                K.render_residuals_ref(*a, tree=False, **kw)}
+    for label, preset in cases:
+        for bf16 in (False, True):
+            x = forward_ab.forward_input(M, preset, dev, bf16)
+            imgs = {}
+            for kernel, call in forward_ab.forward_calls(x).items():
+                kname = kernel + ("_bf16" if bf16 else "")
+                got = forward_ab.flat_outputs(forward_ab.run_forward(M, call))
+                again = forward_ab.flat_outputs(
+                    forward_ab.run_forward(M, call))
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{kname}: two launches differ on {label}")
+                _, args, kw = call
+                kw = {k: v for k, v in kw.items() if k != "tree"}
+                ref = forward_ab.flat_outputs(refs[kernel](*args, **kw))
+                r = compare(got[0], ref[0], 0.01)
+                errs.setdefault(kname, []).append(r["max_abs_err"])
+                fracs.setdefault(kname, []).append(r["frac"])
+                planes = all(torch.equal(a, b) for a, b in zip(got[1:],
+                                                               ref[1:]))
+                print(f"check {kname:26s} {label:36s}: {r['frac']:.5f} of "
+                      f"pixels > {FRAC_TOL}, max abs err "
+                      f"{r['max_abs_err']:.4g}, planes equal the plain "
+                      f"version's {planes}, two launches bit-identical")
+                check(r["ok"] and planes,
+                      f"{kname} disagrees with its plain version on {label}")
+                imgs[kernel] = got[0]
+            same = all(torch.equal(imgs["render_chain"], img)
+                       for img in imgs.values())
+            print(f"check {label} {'bf16' if bf16 else 'f32'}: the images "
+                  f"of {sorted(imgs)} bit-identical: {same}")
+            check(same, f"K2, K3 and residual K2 images differ on {label}")
+            del x
+    torch.cuda.empty_cache()
+
+    # -- how full the lanes are in the sweeps at config 5 2048^2 (the
+    # plain version's count of the one-pixel-a-lane design)
+    c5 = presets.procedural_spheres(n=64, size=2048, depth=3)
+    x = forward_ab.forward_input(M, c5, dev, False)
+    kw = {k: v for k, v in x["kw"].items() if k != "bf16"}
+    eff = opcount.lane_efficiency(x["tables"], x["v"], x["eye"], **kw)
+    for sweep in ("closest", "shadow"):
+        e = eff[sweep]
+        print(f"lanes config 5 2048^2 d3 {sweep}: {e['tests']} tests in "
+              f"{e['warp_steps']} warp steps, lane efficiency "
+              f"{e['efficiency']:.4f} [{card}]")
+    # K3 there against its bound at K9's chain-forward rate
+    w = opcount.forward_work(x["tables"], x["v"], x["eye"], packed=True,
+                             **kw)
+    rate = k9["render_packed"]["k9_rate_ops_per_s"]
+    t_ops = RL.flat_slots(w["classes"]) / rate * 1e3
+    t_bytes = w["bytes"] / opcount.PEAK_BYTES_PER_S * 1e3
+    sheet = opcount.bound_ms(w["ops"], w["bytes"])
+    k3 = forward_ab.forward_calls(x)["render_packed"]
+    ms = time_ms(lambda: forward_ab.run_forward(M, k3), 20)
+    print(f"bound render_packed config 5 2048^2 d3: data sheet "
+          f"{sheet[0]:.5f} ms ({sheet[1]}); at K9's chain forward rate "
+          f"{rate / 1e12:.4f} T: {max(t_ops, t_bytes):.5f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'}); kernel "
+          f"{ms:.4f} ms = {max(t_ops, t_bytes) / ms:.4f} of it [{card}]")
+
+    # -- the main paths with the counters zeroed: a config 5 2048^2 frame
+    # (K2) and a two-phase fit step (K3)
+    scene, cam, cfg = c5
+    camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+    params = M.fit.FitParams.from_scene(scene).to(dev)
+    with torch.no_grad():
+        params.sph_center += 1.5
+    target = []
+    for label, fn, want in (
+            ("serve config 5 2048^2 d3", lambda: K.render_image_kernel(
+                scene, camera, cfg, device=dev), "render_chain"),
+            ("fit step config 5 2048^2 d3 two-phase", lambda:
+                AF.fit_value_and_grad(params, scene, camera, cfg, target[0],
+                                      device=dev), "render_packed")):
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in K.LAUNCHES.items() if c}
+        print(f"path {label}: launches {counts}")
+        check(counts.get(want, 0) > 0, f"{label}: never launched {want}")
+        launches[want] += counts[want]
+        if want == "render_chain":
+            target.append(out)
+            r = compare(out.reshape(-1, 3), K.render_chain_ref(
+                x["tables"], x["v"], x["eye"], **x["kw"]), 0.01)
+            errs["render_chain"].append(r["max_abs_err"])
+            print(f"check render_chain {label} (path): {r['frac']:.5f} of "
+                  f"pixels > {FRAC_TOL}, max abs err {r['max_abs_err']:.4g}")
+            check(r["ok"], f"render_chain path disagrees on {label}")
+        else:
+            check(math.isfinite(float(out[0])), f"{label}: loss not finite")
+        del out
+    del x, target, params
+    torch.cuda.empty_cache()
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
 
 def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
@@ -2181,6 +2331,9 @@ def main():
 
     # ---- 15. the compacted, sparse adjoints; trees to depth 10 ------------
     sparse_phase(dev, card, launches, errs)
+
+    # ---- 16. the chain forward redesigned for the card -------------------
+    chain_phase(dev, card, launches, errs, fracs, k9)
 
     kernels = []
     for k in list(KERNEL_SOURCES) + list(BF16_ROWS):

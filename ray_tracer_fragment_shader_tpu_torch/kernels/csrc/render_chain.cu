@@ -19,17 +19,21 @@
 // of FP32 operations (one closest-hit sweep plus one shadow sweep per light
 // at every level).  RESIDUALS writes (2+nl)*4 bytes per level, a bi, a mid
 // and a lit plane per light (tile_ops.cuh::ResidualWriter), which makes it
-// the one forward bound by its bytes at config 3.  The design therefore
-// keeps the scene in shared memory, one thread per pixel, and cuts work
-// that adds exactly zero: a ray that misses ends its chain, and an
-// all-opaque scene's shadow sweep stops at the first occluder.  Each
-// residual form is the same image code, as the JAX package keeps every
-// chain forward one program shape; levels after the chain ends are still
-// stored, with the value a dead lane has there.  RESIDUALS has no 2^24
-// pack limit: only the 32-bit lit word caps it, at 32 lights.  Every form
-// has a BF16 instantiation, RenderConfig.bf16_shading (tile_ops.cuh's bf16
-// shadow sweep and Phong blend; the C entries' `bf16`).  This first
-// version aims to be right; it is not tuned.
+// the one forward bound by its bytes at config 3.  The design keeps the
+// scene in shared memory, one thread per pixel, and cuts work that adds
+// exactly zero: a ray that misses ends its chain, and an all-opaque
+// scene's shadow sweep stops at the first occluder.  Its time follows the
+// instructions it issues and the warps a SM holds to hide their latency
+// (PERF.md §6: the SASS census of its sweeps and the alternated runs),
+// so the sweeps fold their gates into predicates (tile_ops.cuh), and each
+// form is built for the blocks a SM it runs fastest with
+// (ChainMinBlocks).  Each residual form is the same image code, as the
+// JAX package keeps every chain forward one program shape; levels after
+// the chain ends are still stored, with the value a dead lane has there.
+// RESIDUALS has no 2^24 pack limit: only the 32-bit lit word caps it, at
+// 32 lights.  Every form has a BF16 instantiation,
+// RenderConfig.bf16_shading (tile_ops.cuh's bf16 shadow sweep and Phong
+// blend; the C entries' `bf16`).
 #include "tile_ops.cuh"
 
 namespace rtfs {
@@ -37,8 +41,27 @@ namespace rtfs {
 // What a chain kernel writes besides the image.
 enum class ChainOut { kImage, kPacked, kResiduals };
 
+// Blocks of 256 threads a SM each instantiation is built to hold, chosen
+// by alternated runs against the registers the compiler picks on its own
+// (PERF.md §6): 4 (at most 64 registers a thread) for the all-opaque
+// packed and bf16 residual forms and the transmitting bf16 packed form; 3
+// (80) for the other transmitting forms, whose packed and residual forms
+// took 84 and 87 registers, 2 blocks, on their own; no limit for the
+// all-opaque image forms (63-64 registers on their own) and the
+// all-opaque f32 residual form, which spills at 64 and runs slower with
+// 15 lights.
 template <bool WANT_TRANS, ChainOut OUT, bool BF16>
-__global__ void __launch_bounds__(256)
+struct ChainMinBlocks {
+  static constexpr int value =
+      WANT_TRANS ? (OUT == ChainOut::kPacked && BF16 ? 4 : 3)
+      : (OUT == ChainOut::kPacked || (OUT == ChainOut::kResiduals && BF16))
+          ? 4
+          : 1;
+};
+
+template <bool WANT_TRANS, ChainOut OUT, bool BF16>
+__global__ void __launch_bounds__(
+    256, (ChainMinBlocks<WANT_TRANS, OUT, BF16>::value))
 render_chain_kernel(const float* __restrict__ tables, Params prm,
                     const float* __restrict__ v, float* __restrict__ out,
                     int num_pixels) {
@@ -140,6 +163,26 @@ extern "C" int rtfs_render_chain_residuals(
   return static_cast<int>(rtfs::launch_render(
       rtfs::pick_chain<rtfs::ChainOut::kResiduals>(want_trans, bf16), tables,
       prm, v, out, num_pixels, static_cast<cudaStream_t>(stream)));
+}
+
+// Blocks of the chain kernel's instantiation (want_trans, form: 0 image,
+// 1 packed, 2 residuals; bf16) one SM holds at once with `smem_bytes` of
+// tables, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int rtfs_chain_occupancy(int want_trans, int form, int bf16,
+                                    int smem_bytes, int* blocks) {
+  using rtfs::ChainOut;
+  const rtfs::RenderKernel k =
+      form == 0   ? rtfs::pick_chain<ChainOut::kImage>(want_trans, bf16)
+      : form == 1 ? rtfs::pick_chain<ChainOut::kPacked>(want_trans, bf16)
+                  : rtfs::pick_chain<ChainOut::kResiduals>(want_trans, bf16);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k, 256, static_cast<size_t>(smem_bytes));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 extern "C" const char* rtfs_error_string(int code) {

@@ -103,13 +103,13 @@ __device__ inline Scene load_scene(float* smem, const float* __restrict__ tables
 
 // ---- primitive tests (render_pallas.py::intersect_all's tri_hit/sph_hit) --
 
-// Triangle i against ray o + mm*v: returns the hit predicate (without the
-// valid/exclusion gates, which the sweeps test first) and the parametric
+// Triangle row t against ray o + mm*v: returns the hit predicate (without
+// the valid/exclusion gates, which the sweeps fold in) and the parametric
 // distance mm along the unnormalized direction.
-__device__ __forceinline__ bool tri_hit(const Scene& s, int i, float ox,
-                                        float oy, float oz, float vx, float vy,
-                                        float vz, float* mm_out) {
-  const float* t = s.tri + i * TRI_COLS;
+__device__ __forceinline__ bool tri_hit(const Scene& s, const float* t,
+                                        float ox, float oy, float oz,
+                                        float vx, float vy, float vz,
+                                        float* mm_out) {
   const float ndv = t[3] * vx + t[4] * vy + t[5] * vz;
   const bool plane_ok = fabsf(ndv) >= s.small;
   const float ndo = t[3] * ox + t[4] * oy + t[5] * oz;
@@ -124,23 +124,32 @@ __device__ __forceinline__ bool tri_hit(const Scene& s, int i, float ox,
   const float sb = (t[12] * wv - t[14] * wu) * inv_den;
   const float tb = (t[12] * wu - t[13] * wv) * inv_den;
   *mm_out = mm;
-  return plane_ok && mm >= s.small && sb >= 0.0f && tb >= 0.0f &&
-         sb + tb <= 1.0f;
+  return plane_ok & (mm >= s.small) & (sb >= 0.0f) & (tb >= 0.0f) &
+         (sb + tb <= 1.0f);
 }
 
-// Sphere i against the unit direction u: hit predicate and Euclidean
+// The gates of triangle row t (id i) in a sweep from origin primitive excl.
+__device__ __forceinline__ bool tri_gate(const float* t, int i, int excl) {
+  return (t[19] > 0.5f) & (i != excl);
+}
+// The gates of sphere row c, primitive id `id`.
+__device__ __forceinline__ bool sph_gate(const float* c, int id, int excl) {
+  return (c[5] > 0.5f) & (id != excl);
+}
+
+// Sphere row c against the unit direction u: hit predicate and Euclidean
 // distance of the near root only (Shape::intersection :752).
-__device__ __forceinline__ bool sph_hit(const Scene& s, int i, float ox,
-                                        float oy, float oz, float ux, float uy,
-                                        float uz, float* dist_out) {
-  const float* c = s.sph + i * SPH_COLS;
+__device__ __forceinline__ bool sph_hit(const Scene& s, const float* c,
+                                        float ox, float oy, float oz,
+                                        float ux, float uy, float uz,
+                                        float* dist_out) {
   const float dx = c[0] - ox, dy = c[1] - oy, dz = c[2] - oz;
   const float ud = ux * dx + uy * dy + uz * dz;
   const float rad = c[3];
   const float disc = ud * ud - (dx * dx + dy * dy + dz * dz) + rad * rad;
   const float dist = disc > 0.0f ? ud - sqrtf(disc) : ud;
   *dist_out = dist;
-  return disc >= 0.0f && dist >= s.small;
+  return (disc >= 0.0f) & (dist >= s.small);
 }
 
 struct Ray {
@@ -173,22 +182,25 @@ __device__ __forceinline__ void intersect_closest(
   int bi = -1;
   float transp = 0.0f;
   if (r.ok) {
+    // the gates fold into the compare as predicates, not branches
     for (int i = 0; i < s.nt; ++i) {
       const float* t = s.tri + i * TRI_COLS;
-      if (!(t[19] > 0.5f) || i == excl) continue;
       float mm;
-      if (tri_hit(s, i, ox, oy, oz, vx, vy, vz, &mm)) {
-        const float dist = mm * r.vlen;
-        if (dist < bd) { bd = dist; bi = i; transp = t[20]; }
-      }
+      const bool h = tri_hit(s, t, ox, oy, oz, vx, vy, vz, &mm);
+      const float dist = mm * r.vlen;
+      const bool take = h & tri_gate(t, i, excl) & (dist < bd);
+      bd = take ? dist : bd;
+      bi = take ? i : bi;
+      if constexpr (CARRY_TRANSP) transp = take ? t[20] : transp;
     }
     for (int i = 0; i < s.ns; ++i) {
       const float* c = s.sph + i * SPH_COLS;
-      if (!(c[5] > 0.5f) || s.nt + i == excl) continue;
       float dist;
-      if (sph_hit(s, i, ox, oy, oz, r.ux, r.uy, r.uz, &dist)) {
-        if (dist < bd) { bd = dist; bi = s.nt + i; transp = c[6]; }
-      }
+      const bool h = sph_hit(s, c, ox, oy, oz, r.ux, r.uy, r.uz, &dist);
+      const bool take = h & sph_gate(c, s.nt + i, excl) & (dist < bd);
+      bd = take ? dist : bd;
+      bi = take ? s.nt + i : bi;
+      if constexpr (CARRY_TRANSP) transp = take ? c[6] : transp;
     }
   }
   *bd_out = bd;
@@ -221,9 +233,8 @@ struct RayBf16 {
 
 // tri_hit with the dot products, hit point and barycentrics in bf16 (each
 // table scalar cast on its own); mm and every compare in f32.
-__device__ __forceinline__ bool tri_hit_bf16(const Scene& s, int i,
+__device__ __forceinline__ bool tri_hit_bf16(const Scene& s, const float* t,
                                              const RayBf16& b) {
-  const float* t = s.tri + i * TRI_COLS;
   const bf16 nx = to_bf16(t[3]), ny = to_bf16(t[4]), nz = to_bf16(t[5]);
   const float ndv = to_f32(bdot(nx, ny, nz, b.vx, b.vy, b.vz));
   const bool plane_ok = fabsf(ndv) >= s.small;
@@ -241,15 +252,14 @@ __device__ __forceinline__ bool tri_hit_bf16(const Scene& s, int i,
   const bf16 inv_den = to_bf16(t[TRI_INV_DEN]);
   const float sb = to_f32(bmul(bsub(bmul(uv, wv), bmul(vv, wu)), inv_den));
   const float tb = to_f32(bmul(bsub(bmul(uv, wu), bmul(uu, wv)), inv_den));
-  return plane_ok && mm >= s.small && sb >= 0.0f && tb >= 0.0f &&
-         sb + tb <= 1.0f;
+  return plane_ok & (mm >= s.small) & (sb >= 0.0f) & (tb >= 0.0f) &
+         (sb + tb <= 1.0f);
 }
 
 // sph_hit with the centre offsets and dot products in bf16; disc around
 // them, the root and the compares in f32.
-__device__ __forceinline__ bool sph_hit_bf16(const Scene& s, int i,
+__device__ __forceinline__ bool sph_hit_bf16(const Scene& s, const float* c,
                                              const RayBf16& b) {
-  const float* c = s.sph + i * SPH_COLS;
   const bf16 dx = bsub(to_bf16(c[0]), b.ox);
   const bf16 dy = bsub(to_bf16(c[1]), b.oy);
   const bf16 dz = bsub(to_bf16(c[2]), b.oz);
@@ -257,7 +267,7 @@ __device__ __forceinline__ bool sph_hit_bf16(const Scene& s, int i,
   const float disc = ud * ud - to_f32(bdot(dx, dy, dz, dx, dy, dz)) +
                      c[3] * c[3];
   const float dist = disc > 0.0f ? ud - sqrtf(disc) : ud;
-  return disc >= 0.0f && dist >= s.small;
+  return (disc >= 0.0f) & (dist >= s.small);
 }
 
 // Any-hit occlusion: valid only when no material is transparent, where
@@ -278,23 +288,25 @@ __device__ __forceinline__ bool occluded_any(const Scene& s, float ox,
   }
   for (int i = 0; i < s.nt; ++i) {
     const float* t = s.tri + i * TRI_COLS;
-    if (!(t[19] > 0.5f) || i == excl) continue;
+    bool h;
     if constexpr (BF16) {
-      if (tri_hit_bf16(s, i, b)) return true;
+      h = tri_hit_bf16(s, t, b);
     } else {
       float mm;
-      if (tri_hit(s, i, ox, oy, oz, vx, vy, vz, &mm)) return true;
+      h = tri_hit(s, t, ox, oy, oz, vx, vy, vz, &mm);
     }
+    if (h & tri_gate(t, i, excl)) return true;
   }
   for (int i = 0; i < s.ns; ++i) {
     const float* c = s.sph + i * SPH_COLS;
-    if (!(c[5] > 0.5f) || s.nt + i == excl) continue;
+    bool h;
     if constexpr (BF16) {
-      if (sph_hit_bf16(s, i, b)) return true;
+      h = sph_hit_bf16(s, c, b);
     } else {
       float dist;
-      if (sph_hit(s, i, ox, oy, oz, r.ux, r.uy, r.uz, &dist)) return true;
+      h = sph_hit(s, c, ox, oy, oz, r.ux, r.uy, r.uz, &dist);
     }
+    if (h & sph_gate(c, s.nt + i, excl)) return true;
   }
   return false;
 }

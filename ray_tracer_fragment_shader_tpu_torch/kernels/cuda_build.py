@@ -82,6 +82,8 @@ _ENTRIES = {
     "rtfs_recompute_adjoint": ([_P] + [_I] * 4 + [_P] * 2 + [_P] * 2 + [_I]
                                + [_F] * 3 + [_I] + [_F] * 2 + [_I] * 5
                                + [_P, _I, _P]),
+    # want_trans form bf16 smem_bytes blocks (render_chain.cu)
+    "rtfs_chain_occupancy": [_I] * 4 + [_P],
     # tables; ns nt m nl; v g bi mid lit; ids count; num_pixels; eye;
     # depth; atten; want_trans; partial num_blocks; stream
     "rtfs_fit_grads": ([_P] + [_I] * 4 + [_P] * 5 + [_P] * 2 + [_I]
@@ -160,6 +162,9 @@ def _build(path: str) -> None:
     for o in objs:
         os.remove(o)
     build_info.update(seconds=time.perf_counter() - t0, log=log, built=True)
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", f"{path}.log")
     os.replace(tmp, path)
 
 
@@ -173,7 +178,11 @@ def load() -> ctypes.CDLL:
         if not os.path.exists(path):
             _build(path)
         else:
-            build_info.update(seconds=0.0, log="", built=False)
+            log = ""
+            if os.path.exists(f"{path}.log"):
+                with open(f"{path}.log") as f:
+                    log = f.read()
+            build_info.update(seconds=0.0, log=log, built=False)
         build_info["path"] = path
         lib = ctypes.CDLL(path)
         for name, argtypes in _ENTRIES.items():

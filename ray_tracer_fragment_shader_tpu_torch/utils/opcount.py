@@ -42,7 +42,7 @@ PERF.md).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -167,12 +167,12 @@ def bound_ms(ops: float, nbytes: float,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _shadow_tests(ops: _PlainOps, px, py, pz, bi, hitm, light,
-                  any_hit: bool) -> Tuple[int, int, int]:
-    """(triangle, sphere) tests of one light's shadow sweep over the hit
-    lanes: up to the first occluder for the any-hit sweep (its bf16 form
-    under ``ops.bf16``), all of them for the nearest-occluder sweep; and
-    the number of any-hit sweeps run."""
+def _shadow_lane_tests(ops: _PlainOps, px, py, pz, bi, hitm, light,
+                       any_hit: bool):
+    """(triangle tests, sphere tests) of one light's shadow sweep, per lane
+    (int tensors), and the lanes whose shadow ray is cast: up to the first
+    occluder for the any-hit sweep (its bf16 form under ``ops.bf16``), all
+    of them for the nearest-occluder sweep."""
     svx, svy, svz = light[0] - px, light[1] - py, light[2] - pz
     vlen2 = svx * svx + svy * svy + svz * svz
     ok = hitm & (vlen2 > 0.0)
@@ -190,33 +190,37 @@ def _shadow_tests(ops: _PlainOps, px, py, pz, bi, hitm, light,
         sph_hit = lambda i: ops._sph_hit(i, px, py, pz, ux, uy, uz, ok,
                                          bi)[0]
     found = torch.zeros_like(ok)
-    n_tri = n_sph = 0
+    n_tri = torch.zeros(ok.shape, dtype=torch.int64, device=ok.device)
+    n_sph = torch.zeros_like(n_tri)
     for i in range(ops.nt):
         if ops.tri[i][19] > 0.5:
             active = ok & ~found & (bi != float(i))
-            n_tri += int(active.sum())
+            n_tri += active
             if any_hit:
                 found |= active & tri_hit(i)
     for i in range(ops.ns):
         if ops.sph[i][5] > 0.5:
             active = ok & ~found & (bi != float(i + ops.nt))
-            n_sph += int(active.sum())
+            n_sph += active
             if any_hit:
                 found |= active & sph_hit(i)
-    return n_tri, n_sph, int(ok.sum()) if any_hit else 0
+    return n_tri, n_sph, ok
 
 
 def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
                  residuals: bool = False, nl: int, depth: int, small: float,
                  atten: float, checker_mats, want_trans: bool,
-                 bf16: bool = False) -> Dict[str, float]:
+                 bf16: bool = False,
+                 lanes: Optional[list] = None) -> Dict[str, float]:
     """Operations and bytes of one chain (``tree=False``) or tree kernel
     call on [P,3] primary directions ``v`` — what csrc/render_chain.cu or
     render_tree.cu runs on these inputs, in its bf16_shading form with
     ``bf16`` (``bf16_ops`` of the operations then bfloat16).  ``packed``
     adds the packed plane's bytes (4 per level), ``residuals`` the
     unpacked planes' ((2+nl)*4 per level or preorder node), written for
-    every pixel; neither adds operations."""
+    every pixel; neither adds operations.  With ``lanes`` (a list), each
+    node visit appends its tests per lane: ``closest`` [P] and ``shadow``,
+    one [P] per light (``lane_efficiency`` reads them)."""
     P = v.shape[0]
     ops = _PlainOps(tables, num_pixels=P, nl=nl, small=small, atten=atten,
                     checker_mats=checker_mats, all_opaque=not want_trans,
@@ -238,11 +242,18 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
         out = ops.node(*o, *d, excl, alive, thr, col, want_trans)
         hitm, bi, p = out[0], out[1], out[2]
         work["hits"] += int(hitm.sum())
+        shadow = []
         for light in ops.light:
-            t, s, n = _shadow_tests(ops, *p, bi, hitm, light, not want_trans)
-            work["shadow_tri_tests"] += t
-            work["shadow_sph_tests"] += s
-            work["any_hit_sweeps"] += n
+            t, s, ok = _shadow_lane_tests(ops, *p, bi, hitm, light,
+                                          not want_trans)
+            work["shadow_tri_tests"] += int(t.sum())
+            work["shadow_sph_tests"] += int(s.sum())
+            work["any_hit_sweeps"] += int(ok.sum()) if not want_trans else 0
+            shadow.append(t + s)
+        if lanes is not None:
+            closest = torch.where(alive, n_tri_ok + n_sph_ok
+                                  - (excl >= 0).long(), 0)
+            lanes.append(dict(closest=closest, shadow=shadow))
         return out
 
     one = ops.full(1.0)
@@ -291,6 +302,45 @@ def forward_work(tables, v, eye, *, tree: bool = False, packed: bool = False,
                 bytes=float(nbytes),
                 bf16_ops=float(sum(n * BF16_OPS.get(u, 0)
                                    for u, n in units.items())))
+
+
+#: the lanes of a warp: the chain kernel's 256-thread blocks trace pixels
+#: p = 32 w .. 32 w + 31 in warp w
+WARP = 32
+
+
+def lane_efficiency(tables, v, eye, *, nl: int, depth: int, small: float,
+                    atten: float, checker_mats, want_trans: bool,
+                    bf16: bool = False) -> Dict[str, dict]:
+    """How full the lanes of the chain kernel's warps are in its two sweeps
+    (one pixel a lane, tile_ops.cuh::chain_forward), from the plain version
+    on these inputs (``forward_work``'s replay): ``closest`` and
+    ``shadow``, each with ``tests`` (primitive tests over all lanes, the
+    excluded origin primitive skipped; shadow tests up to the first
+    occluder where the sweep is any-hit), ``warp_steps`` (the sum over
+    warps of the most tests one lane of the warp runs: one closest-hit
+    sweep per warp and level, one shadow sweep per warp, level and light)
+    and ``efficiency``, tests / (WARP x warp_steps).  A ragged last warp
+    counts its missing lanes idle."""
+    lanes: list = []
+    forward_work(tables, v, eye, nl=nl, depth=depth, small=small,
+                 atten=atten, checker_mats=checker_mats,
+                 want_trans=want_trans, bf16=bf16, lanes=lanes)
+    P = v.shape[0]
+    pad = -P % WARP
+
+    def per_warp(t):
+        return torch.nn.functional.pad(t, (0, pad)).reshape(-1, WARP)
+    out = {}
+    for sweep in ("closest", "shadow"):
+        tests = steps = 0
+        for rec in lanes:
+            for t in (rec[sweep] if sweep == "shadow" else [rec[sweep]]):
+                tests += int(t.sum())
+                steps += int(per_warp(t).max(1).values.sum())
+        out[sweep] = dict(tests=tests, warp_steps=steps,
+                          efficiency=tests / (WARP * steps) if steps else 1.0)
+    return out
 
 
 def _chain_adjoint_ops(bi, lit, g_live, *, nt: int, depth: int,

@@ -717,3 +717,50 @@ def test_compacted_wrappers_do_not_synchronise(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# ---- the chain forward as redesigned for the card -------------------------
+
+def chain_scene(nl, depth, size):
+    """config 5's 66 primitives at ``depth`` under ``nl`` lights: 0, 1 or 2
+    of procedural_spheres' own, or pack_overflow's 15 (a chain scene)."""
+    if nl == 15:
+        scene, cam, cfg = presets.pack_overflow(size=size, fractional=False)
+    else:
+        scene, cam, cfg = presets.procedural_spheres(n=64, size=size,
+                                                     depth=depth)
+        scene = scene.replace(light_pos=scene.light_pos[:nl],
+                              light_color=scene.light_color[:nl])
+    return scene, cam, dataclasses.replace(cfg, max_depth=depth)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("depth", [0, 5])
+@pytest.mark.parametrize("nl", [0, 1, 2, 15])
+def test_redesigned_chain_forward_matches_plain(cuda, nl, depth, bf16):
+    """K2, K3 (where the pack holds the scene) and residual K2 on a 57^2
+    frame (3249 pixels: a ragged last warp and block) against their plain
+    versions: two launches bit-identical, the image within the budget,
+    the planes equal; the three images bit-identical."""
+    from ray_tracer_fragment_shader_tpu_torch import forward_ab
+    M = adjoint_ab.modules()
+    x = forward_ab.forward_input(M, chain_scene(nl, depth, 57), cuda, bf16)
+    assert x["v"].shape[0] == 3249 and not x["tree"]
+    assert (x["pack"] is None) == (nl == 15)
+    refs = {"render_chain": K.render_chain_ref,
+            "render_packed": K.render_packed_ref,
+            "render_chain_residuals": lambda *a, **kw:
+                K.render_residuals_ref(*a, tree=False, **kw)}
+    imgs = {}
+    for kernel, (name, args, kw) in forward_ab.forward_calls(x).items():
+        call = (name, args, kw)
+        a = forward_ab.flat_outputs(forward_ab.run_forward(M, call))
+        b = forward_ab.flat_outputs(forward_ab.run_forward(M, call))
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(a, b)), kernel
+        ref = forward_ab.flat_outputs(refs[kernel](
+            *args, **{k: v for k, v in kw.items() if k != "tree"}))
+        assert_close_frac(ref[0], a[0], 0.01)
+        assert all(torch.equal(p, q) for p, q in zip(a[1:], ref[1:])), kernel
+        imgs[kernel] = a[0]
+    assert all(torch.equal(imgs["render_chain"], i) for i in imgs.values())
