@@ -38,7 +38,7 @@ Phases (each raises on failure; the script then exits non-zero):
    counters must show K3 and K4 launched; config 3's and config 5's losses
    and gradients are then held against the plain version on the same
    inputs, as in phase 4;
-6. the one-dispatch fit kernels against their plain versions at 128^2, on
+6. the fused fit kernels K6 and K7 against their plain versions at 128^2, on
    the scenes of phase 4 and fractional_glass d3 (the tree), parameters
    sphere centres + 1.5, target the unperturbed render: K6
    (``fused_adjoint``) and K7 (``recompute_adjoint``, cotangent
@@ -172,6 +172,19 @@ Phases (each raises on failure; the script then exits non-zero):
    (``opcount.lane_efficiency``); and, with the counters zeroed, a config
    5 2048^2 frame (K2, held against its plain version) and a two-phase
    fit step there (K3).
+17. K6 redesigned for the card (``k6_phase``: on the chain the records
+   forward at the chain forward's launch bounds, the live list, the
+   adjoint on the records; on the tree one dispatch): ptxas's registers,
+   stack and spills and the blocks a SM of every K6 kernel and of K5; K6,
+   chain and tree, f32 and bf16, on config 3, glass_chain, a 57^2 frame,
+   fractional_glass and glass_cube at depths 5, 7 and 10 (the tree caps),
+   under the real cotangent and in f32 the all-zero and one-live ones,
+   twice bit-identical and within 1e-3 of max|plain|
+   (``adjoint_ab.hold``), the chain K6 equal to K3+K4 bit for bit; K5 and
+   residual K5 on fractional_glass 57^2 at depths 0, 3 and 5 (planes
+   equal to the plain version's, K5's image equal to residual K5's bit
+   for bit); and, with the counters zeroed, a fused fit step at config 5
+   2048^2 (K6 alone) equal to the two-phase step bit for bit.
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.  The bf16 rows
@@ -454,9 +467,10 @@ def hold_probe(kname, label, got, ref, tol):
 
 
 def fused_stack_frames(log: str):
-    """{(tree, bf16, cap): stack-frame bytes} of the K6/K7 instantiations
-    (csrc/adjoint_fused.cu's fused_adjoint_kernel<TREE, EXTERNAL_G,
-    WANT_TRANS, BF16, TREE_CAP>) in a ptxas -v log."""
+    """{(tree, bf16, cap): stack-frame bytes} of the one-dispatch
+    instantiations (K6's tree form, K7; csrc/adjoint_fused.cu's
+    fused_adjoint_kernel<TREE, EXTERNAL_G, WANT_TRANS, BF16, TREE_CAP>) in
+    a ptxas -v log."""
     import re
     out, key = {}, None
     for line in log.splitlines():
@@ -1197,6 +1211,124 @@ def chain_phase(dev, card, launches, errs, fracs, k9):
     del x, target, params
     torch.cuda.empty_cache()
     print(f"phase 16: {time.perf_counter() - t16:.1f} s")
+
+
+def k6_phase(dev, card, launches, errs):
+    """Phase 17: K6 redesigned (on the chain the records forward, the live
+    list and the adjoint on the records; on the tree one dispatch) and K5.
+    Adds to ``launches`` and ``errs`` of K6, K5 and their bf16 rows."""
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch import adjoint_ab, forward_ab
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import Camera
+    from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    t17 = time.perf_counter()
+    M = adjoint_ab.modules()
+
+    # -- registers, stack, spills and blocks a SM of K6's kernels and K5's
+    fr = presets.full_reflective(size=64, depth=3)
+    x = adjoint_ab.inputs(fr, dev)
+    smem_t = 4 * K._flat_tables(x["tables"], x["kw"]["nl"]).numel()
+    ncols = (1 + 4 * x["tables"]["sph"].shape[0]
+             + 9 * x["tables"]["mat"].shape[0] + 3 * x["kw"]["nl"])
+    smem_a = smem_t + 4 * (8 * ncols + AF.ADJOINT_STAGE_FLOATS)
+    k6 = forward_ab.print_resources(
+        "K6", adjoint_ab.k6_all(M, smem_t, smem_a), M, card)
+    k5 = forward_ab.print_resources(
+        "K5", [("render_tree_kernel", (wt, 0, bf),
+                forward_ab.occupancy(M, "tree_occupancy", wt, 0, bf, smem_t))
+               for wt in (0, 1) for bf in (0, 1)], M, card)
+    check(len(k6) == 18 and all(r.get("registers") for r in k6 + k5),
+          "K6's or K5's instantiations missing from the build log")
+
+    # -- K6 against its plain version: chain and tree, f32 (real, all-zero
+    # and one-live cotangents) and bf16 (real), the tree caps 5, 7 and 10;
+    # the chain K6 against K3+K4
+    n = 64
+    cases = [("config 3 d3", presets.full_reflective(size=n, depth=3)),
+             ("glass_chain d3", presets.glass_chain(size=n, depth=3)),
+             ("config 5 d3 57^2", presets.procedural_spheres(n=64, size=57,
+                                                             depth=3)),
+             ("fractional_glass d3", presets.fractional_glass(size=n,
+                                                              depth=3))]
+    cases += [(f"glass_cube 32^2 d{d}", presets.glass_cube(size=32, depth=d))
+              for d in (5, 7, 10)]
+    for label, preset in cases:
+        for bf16 in (False, True):
+            x = adjoint_ab.inputs(preset, dev, bf16)
+            kname = "fused_adjoint" + ("_bf16" if bf16 else "")
+            for cot in ("real",) if bf16 else ("real", "zero", "one"):
+                r = adjoint_ab.hold(x, cot)["fused_adjoint"]
+                errs[kname].extend(r["diffs"])
+                print(f"check {kname} {label} {cot}: two launches "
+                      f"bit-identical, loss rel {r['loss_rel']:.2e}, "
+                      f"max|diff|/max|plain| {r['worst']:.2e} (tolerance "
+                      f"{adjoint_ab.GRAD_REL_TOL})")
+            if "akw" in x:
+                fns = adjoint_ab.calls(x, "real")
+                a = adjoint_ab.run(AF, fns["fused_adjoint"])
+                b = adjoint_ab.run(AF, fns["adjoint_packed"])
+                same = all(torch.equal(p, q) for p, q in zip(a, b))
+                print(f"check {kname} {label}: the chain K6's loss and "
+                      f"tables equal K3+K4's bit for bit: {same}")
+                check(same, f"{kname} is not K3+K4 bit for bit on {label}")
+            del x
+    torch.cuda.empty_cache()
+
+    # -- K5 and residual K5 against their plain versions
+    for depth in (0, 3, 5):
+        for bf16 in (False, True):
+            scene, cam, cfg = presets.fractional_glass(size=57, depth=depth)
+            x = forward_ab.forward_input(
+                M, (scene, cam, dataclasses.replace(cfg, bf16_shading=bf16)),
+                dev, bf16)
+            t, v, eye, kw = x["tables"], x["v"], x["eye"], x["kw"]
+            img = K.render_tree(t, v, eye, **kw)
+            img2, res = K.render_residuals(t, v, eye, tree=True, **kw)
+            ref_img, ref = K.render_residuals_ref(t, v, eye, tree=True, **kw)
+            r = compare(img, ref_img, 0.01)
+            planes = all(torch.equal(res[k], ref[k]) for k in ref)
+            kname = "render_tree" + ("_bf16" if bf16 else "")
+            errs[kname].append(r["max_abs_err"])
+            print(f"check {kname} fractional_glass 57^2 d{depth}: "
+                  f"{r['frac']:.5f} of pixels > {FRAC_TOL}, image equal to "
+                  f"residual K5's {torch.equal(img, img2)}, planes equal the "
+                  f"plain version's {planes}")
+            check(r["ok"] and planes and torch.equal(img, img2),
+                  f"{kname} disagrees on fractional_glass d{depth}")
+
+    # -- the main path with the counters zeroed: a fused fit step at config
+    # 5 2048^2 (K6 alone), held against the two-phase step bit for bit
+    scene, cam, cfg = presets.procedural_spheres(n=64, size=2048, depth=3)
+    camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+    params = M.fit.FitParams.from_scene(scene).to(dev)
+    target = K.render_image_kernel(scene, camera, cfg, device=dev)
+    with torch.no_grad():
+        params.sph_center += 1.5
+    steps = {}
+    for mode, want in (("fused", "fused_adjoint"),
+                       ("twophase", "render_packed")):
+        K.reset_launch_counts()
+        steps[mode] = AF.fit_value_and_grad(params, scene, camera, cfg,
+                                            target, mode=mode, device=dev)
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in K.LAUNCHES.items() if c}
+        print(f"path fit step config 5 2048^2 d3 {mode}: launches {counts}")
+        check(counts.get(want, 0) > 0, f"{mode} step never launched {want}")
+        launches[want] += counts[want]
+        if mode == "fused":
+            check(set(counts) == {"fused_adjoint"},
+                  "the fused step launched another kernel")
+    (l6, g6), (l4, g4) = steps["fused"], steps["twophase"]
+    same = torch.equal(l6, l4) and all(torch.equal(g6[k], g4[k]) for k in g4)
+    print(f"check fit step config 5 2048^2 d3: the fused step's loss and "
+          f"gradients equal the two-phase step's bit for bit: {same}")
+    check(same, "the fused step differs from the two-phase step")
+    del steps, params, target
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s")
 
 
 def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
@@ -2334,6 +2466,9 @@ def main():
 
     # ---- 16. the chain forward redesigned for the card -------------------
     chain_phase(dev, card, launches, errs, fracs, k9)
+
+    # ---- 17. K6 redesigned for the card, and K5 --------------------------
+    k6_phase(dev, card, launches, errs)
 
     kernels = []
     for k in list(KERNEL_SOURCES) + list(BF16_ROWS):

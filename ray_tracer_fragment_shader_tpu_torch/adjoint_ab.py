@@ -5,7 +5,7 @@ it), and their times, beside another checkout's port package in the same
 process.
 
     python -m ray_tracer_fragment_shader_tpu_torch.adjoint_ab \
-        [--other DIR] [--out FILE]
+        [--other DIR] [--out FILE] [--no-paths] [--cpu] [--size N]
 
 The inputs are those of PERF.md's rows (``chip_smoke.py`` phase 8): the
 scene's sphere centres moved by 1.5, the target the unmoved scene's render.
@@ -105,8 +105,8 @@ def inputs(preset, dev, bf16: bool = False) -> dict:
     the target: the tables, rays ``v``, ``eye``, render keywords ``kw``,
     ``target``, ``mask``, ``tree``, ``g_scale`` (2 / (3P)), the frame's
     ``width``, the moved scene's own render ``own``, and on chain scenes
-    the adjoint keywords ``akw`` and the packed forward's image and
-    residuals (``img``, ``pk``)."""
+    the pack holds the adjoint keywords ``akw`` and the packed forward's
+    image and residuals (``img``, ``pk``)."""
     M = modules()
     scene, cam, cfg = preset
     cfg = dataclasses.replace(cfg, bf16_shading=bf16)
@@ -125,7 +125,9 @@ def inputs(preset, dev, bf16: bool = False) -> dict:
              g_scale=2.0 / (v.shape[0] * 3), width=cfg.width)
     render = M.K.render_tree if x["tree"] else M.K.render_chain
     x["own"] = render(tables, v, eye, **kw)
-    if not x["tree"]:
+    if not x["tree"] and M.K.pack_fits(tables["tri"].shape[0],
+                                       scene_c.num_spheres,
+                                       scene_c.num_materials, kw["nl"]):
         x["akw"] = M.AF.kernel_inputs(moved, cfg, v.shape[0], device=dev)[3]
         x["img"], x["pk"] = M.K.render_packed(tables, v, eye,
                                               pack=x["akw"]["pack"], **kw)
@@ -173,9 +175,10 @@ def cotangent(x, cot: str):
 
 
 def calls(x, cot: str) -> dict:
-    """{key: (wrapper name, args, keywords)} of K6 and K7, and on chain
-    scenes K4, K8 and K8 under K4's cotangent (``k8_under_k4``), on ``x``
-    under the cotangent ``cot``; ``run`` launches one."""
+    """{key: (wrapper name, args, keywords)} of K6 and K7, on chain
+    scenes K8, and where the pack holds them K4 and K8 under K4's
+    cotangent (``k8_under_k4``), on ``x`` under the cotangent ``cot``;
+    ``run`` launches one."""
     t, v, eye, kw = x["tables"], x["v"], x["eye"], x["kw"]
     target, mask, gs, target4 = cotangent(x, cot)
     g = (gs * ((x["own"] - target) * mask[:, None])).contiguous()
@@ -187,13 +190,77 @@ def calls(x, cot: str) -> dict:
         return out
     res = residuals(x)
     fkw = {k: kw[k] for k in ("nl", "depth", "atten", "want_trans")}
+    out["fit_grads"] = ("fit_grads", (t, v, eye, g, res), fkw)
+    if "akw" not in x:
+        return out
     img, pk = x["img"], x["pk"]
     g4 = (gs * ((img - target4) * mask[:, None])).contiguous()
     out.update(
         adjoint_packed=("adjoint_packed", (t, v, eye, img, target4, mask, pk),
                         dict(x["akw"], g_scale=gs)),
-        fit_grads=("fit_grads", (t, v, eye, g, res), fkw),
         k8_under_k4=("fit_grads", (t, v, eye, g4, res), fkw))
+    return out
+
+
+def k6_kernels(M, x) -> list:
+    """[(kernel name, template arguments, blocks of 256 a SM)] of each
+    kernel instantiation K6 (``fused_adjoint``) runs on ``x`` in package
+    ``M``: on the chain the records forward and the records adjoint where
+    the package has them, else (and on the tree) the one-dispatch kernel
+    at the tree's depth cap; blocks a SM at ``x``'s shared memory."""
+    from .forward_ab import occupancy
+    lib = M.cuda_build.load()
+    kw, tree = x["kw"], x["tree"]
+    wt, bf16, depth = int(kw["want_trans"]), int(kw["bf16"]), kw["depth"]
+    flat = M.K._flat_tables(x["tables"], kw["nl"])
+    ns, m = x["tables"]["sph"].shape[0], x["tables"]["mat"].shape[0]
+    ncols = 1 + 4 * ns + 9 * m + 3 * kw["nl"]
+    smem_t = 4 * flat.numel()
+    smem_a = 4 * (flat.numel() + M.AF.ADJOINT_THREADS // 32 * ncols
+                  + M.AF.ADJOINT_STAGE_FLOATS)
+    if not tree and hasattr(lib, "rtfs_records_occupancy"):
+        return [("render_chain_kernel", (wt, 3, bf16),
+                 occupancy(M, "chain_occupancy", wt, 3, bf16, smem_t)),
+                ("records_adjoint_kernel", (wt,),
+                 occupancy(M, "records_occupancy", wt, smem_a))]
+    cap = (next(c for c in M.AF.TREE_ADJOINT_DEPTH_CAPS if depth <= c)
+           if tree else 0)
+    return [("fused_adjoint_kernel", (int(tree), 0, wt, bf16, cap),
+             occupancy(M, "fused_occupancy", int(tree), 0, wt, bf16, depth,
+                       smem_a))]
+
+
+def k6_all(M, smem_t: int, smem_a: int) -> list:
+    """``k6_kernels``' triples for every K6 instantiation in package
+    ``M``'s build log, blocks a SM at ``smem_t`` bytes of tables (a
+    forward) or ``smem_a`` of tables and sums (an adjoint)."""
+    from .forward_ab import occupancy, ptxas_kernels
+    log = M.cuda_build.build_info.get("log", "")
+    out = [("fused_adjoint_kernel", a,
+            occupancy(M, "fused_occupancy", a[0], 0, a[2], a[3], a[4],
+                      smem_a))
+           for a in ptxas_kernels(log, "fused_adjoint_kernel") if a[1] == 0]
+    if hasattr(M.cuda_build.load(), "rtfs_records_occupancy"):
+        out += [("render_chain_kernel", a,
+                 occupancy(M, "chain_occupancy", *a, smem_t))
+                for a in ptxas_kernels(log, "render_chain_kernel")
+                if a[1] == 3]
+        out += [("records_adjoint_kernel", a,
+                 occupancy(M, "records_occupancy", *a, smem_a))
+                for a in ptxas_kernels(log, "records_adjoint_kernel")]
+    return out
+
+
+def forward_calls(x) -> dict:
+    """{wrapper name: zero-argument launch} of the forward kernels on
+    ``x``'s inputs: K2 and K3 on a chain scene, K5 on a tree scene."""
+    t, v, eye, kw = x["tables"], x["v"], x["eye"], x["kw"]
+    if x["tree"]:
+        return {"render_tree": lambda M: M.K.render_tree(t, v, eye, **kw)}
+    out = {"render_chain": lambda M: M.K.render_chain(t, v, eye, **kw)}
+    if "akw" in x:
+        out["render_packed"] = lambda M: M.K.render_packed(
+            t, v, eye, pack=x["akw"]["pack"], **kw)
     return out
 
 
@@ -227,7 +294,8 @@ def hold(x, cot: str, M=None) -> dict:
     each table within GRAD_REL_TOL of max|plain|, so a table the plain
     version leaves 0 is exactly 0.  Under ``zero`` every plain table is 0
     and K4's loss the full sum; under ``one`` some plain table is not 0.
-    K8 under K4's cotangent equals K4 bit for bit.  Raises AssertionError;
+    K8 under K4's cotangent equals K4 bit for bit, and so does K6 on the
+    chain (its loss too).  Raises AssertionError;
     returns {key: dict(loss_rel, worst (the largest max|diff|/max|plain|),
     diffs (max|diff| per table), plain_max)}."""
     M = M or modules().AF
@@ -267,6 +335,10 @@ def hold(x, cot: str, M=None) -> dict:
         _need(all(torch.equal(p, q) for p, q in zip(
             got["k8_under_k4"], got["adjoint_packed"][1:])),
               f"K8 is not K4 bit for bit under {cot}")
+    if "adjoint_packed" in got and hasattr(M, "fused_records_ref"):
+        _need(all(torch.equal(p, q) for p, q in zip(
+            got["fused_adjoint"], got["adjoint_packed"])),
+              f"K6 is not K3+K4 bit for bit under {cot}")
     if cot == "zero" and "adjoint_packed" in got:
         _need(got["adjoint_packed"][0].item() > 0,
               "K4's loss is not the full sum under the zero cotangent")
@@ -361,32 +433,19 @@ def path_steps(M, dev) -> dict:
     return steps
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="adjoint_ab")
-    ap.add_argument("--other", default=None,
-                    help="a checkout whose port package is timed alongside")
-    ap.add_argument("--out", default=OUT)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("adjoint_ab needs a CUDA GPU")
-    dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--id=0",
-                           "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card)
-    this = modules()
-    this.cuda_build.load()
-    for line in this.cuda_build.build_info.get("log", "").splitlines():
-        if ("adjoint" in line or "fit_grads" in line or "live" in line
-                or "stack frame" in line or "registers" in line):
-            print("  ptxas:", line.strip())
-    other = load_other(args.other) if args.other else None
-    P = this.presets
+def cases(P, size=None) -> list:
+    """(label, (scene, camera config, config), bf16, kernels) of the timed
+    rows, every frame at ``size``^2 if given."""
+    def sized(preset):
+        if size is None:
+            return preset
+        scene, cam, cfg = preset
+        return scene, cam, dataclasses.replace(cfg, width=size, height=size)
     demo, demo_cam, demo_cfg = P.reference_demo()
     fr3 = P.full_reflective(size=1024, depth=3)
     c5 = P.procedural_spheres(n=64, size=2048, depth=3)
-    cases = [
+    return [(label, sized(preset), bf16, kernels)
+            for label, preset, bf16, kernels in (
         ("config 3 1024^2 d3", fr3, False,
          ("adjoint_packed", "fit_grads", "fused_adjoint")),
         ("config 5 2048^2 d3", c5, False,
@@ -399,11 +458,101 @@ def main(argv=None) -> int:
         ("fractional_glass 512^2 d3", P.fractional_glass(size=512, depth=3),
          False, ("recompute_adjoint",)),
         ("config 3 1024^2 d3 bf16", fr3, True,
-         ("fused_adjoint", "recompute_adjoint")),
-    ]
+         ("fused_adjoint", "recompute_adjoint")))]
+
+
+def cpu_rows(this, other, size: int) -> list:
+    """Every row's kernels under every cotangent through the plain
+    versions on the CPU, at ``size``^2: each output of ``this`` package
+    against ``other``'s, bit for bit."""
     rows = []
-    for label, preset, bf16, kernels in cases:
+    for label, preset, bf16, kernels in cases(this.presets, size):
+        x = inputs(preset, torch.device("cpu"), bf16)
+        for cot in COTANGENTS:
+            fns = calls(x, cot)
+            for kernel in kernels:
+                a = run(this.AF, fns[kernel])
+                b = a if other is None else run(other.AF, fns[kernel])
+                equal, rel = _compare(a, b)
+                rows.append(dict(kernel=kernel, input=label, cotangent=cot,
+                                 live_pixels=live_pixels(x, fns[kernel]),
+                                 equal_to_other=equal, rel_to_other=rel))
+                print(f"{kernel:18s} {label:38s} {cot:4s} live "
+                      f"{rows[-1]['live_pixels']:6d}: equal {equal}, rel "
+                      f"{rel:.2e} [cpu]")
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="adjoint_ab")
+    ap.add_argument("--other", default=None,
+                    help="a checkout whose port package is timed alongside")
+    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--cpu", action="store_true",
+                    help="compare the two packages' plain versions on the "
+                         "CPU: no times")
+    ap.add_argument("--size", type=int, default=None,
+                    help="every frame at this size squared")
+    ap.add_argument("--no-paths", action="store_true",
+                    help="time the kernels only, not the paths")
+    args = ap.parse_args(argv)
+    this = modules()
+    other = load_other(args.other) if args.other else None
+    if args.cpu:
+        rows = cpu_rows(this, other, args.size or 16)
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(card="cpu", other=args.other, rows=rows), f,
+                      indent=1)
+        print(json.dumps(dict(card="cpu", rows=len(rows), unequal=sum(
+            not r["equal_to_other"] for r in rows))))
+        return 0
+    if not torch.cuda.is_available():
+        raise RuntimeError("adjoint_ab needs a CUDA GPU (or --cpu)")
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--id=0",
+                           "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card)
+    this.cuda_build.load()
+    for line in this.cuda_build.build_info.get("log", "").splitlines():
+        if ("adjoint" in line or "fit_grads" in line or "live" in line
+                or "stack frame" in line or "registers" in line):
+            print("  ptxas:", line.strip())
+    from .forward_ab import print_resources
+    rows, resources = [], []
+    # every K6 instantiation, at config 3's shared memory (full_reflective:
+    # 464 floats of tables, 52 columns)
+    for tag, Mod in (("this", this), ("other", other)):
+        if Mod is not None:
+            resources += [dict(r, input="every instantiation", package=tag)
+                          for r in print_resources(
+                              f"K6 ({tag})", k6_all(Mod, 4 * 464, 4 * (
+                                  464 + 8 * 52 + Mod.AF.ADJOINT_STAGE_FLOATS)),
+                              Mod, card)]
+    for label, preset, bf16, kernels in cases(this.presets, args.size):
         x = inputs(preset, dev, bf16)
+        if "fused_adjoint" in kernels:
+            for tag, Mod in (("this", this), ("other", other)):
+                if Mod is not None:
+                    resources += [dict(r, input=label, package=tag)
+                                  for r in print_resources(
+                                      f"K6 {label} ({tag})",
+                                      k6_kernels(Mod, x), Mod, card)]
+            # the forward kernels on the same inputs
+            for kernel, fn in forward_calls(x).items():
+                row = dict(kernel=kernel, input=label, cotangent=None)
+                row.update(_alternated(
+                    lambda Mod: time_ms(lambda: fn(Mod), REPS), this, other))
+                ms = sum(row["ms"]) / len(row["ms"])
+                txt = f"{kernel:18s} {label:38s} forward: {ms:.4f} ms"
+                if other is not None:
+                    o = sum(row["other_ms"]) / 2
+                    txt += f"; other {o:.4f} ms (this/other {ms / o:.3f})"
+                print(txt + f" [{card}]")
+                rows.append(row)
         for cot in ("real", "zero", "live"):
             fns = calls(x, cot)
             for kernel in kernels:
@@ -441,8 +590,8 @@ def main(argv=None) -> int:
     # the paths a user runs, on the host clock; with another package,
     # PATH_PAIRS pairs, alternating which of the two runs first
     iters = {"reference_demo": 16, "render_image_diff": 4}
-    built = {"this": path_steps(this, dev)}
-    if other is not None:
+    built = {"this": {} if args.no_paths else path_steps(this, dev)}
+    if other is not None and not args.no_paths:
         built["other"] = path_steps(other, dev)
     paths = []
     for path in built["this"]:
@@ -480,7 +629,7 @@ def main(argv=None) -> int:
         print(txt + f"; device allocations {row['device_allocs']} [{card}]")
         paths.append(row)
     out = dict(card=card, reps=REPS, other=args.other, rows=rows,
-               paths=paths)
+               resources=resources, paths=paths)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)

@@ -4,8 +4,8 @@
 L2 photometric loss plus Adam over sphere centres and radii, light
 positions and material colours, with gradients defined through fixed hit
 topology.  Each step runs the fit kernels (kernels/adjoint_fused.py: the
-packed forward and the adjoint for chain scenes, the one-dispatch tree
-kernel for fractional-transparency scenes) inside a
+packed forward and the adjoint for chain scenes, K6's tree form for
+fractional-transparency scenes) inside a
 ``torch.autograd.Function``, so the parameters are ``nn.Parameter``s that
 ``torch.optim`` updates.
 

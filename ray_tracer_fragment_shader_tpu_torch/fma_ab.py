@@ -14,7 +14,7 @@ render_tree.cu, off in the adjoint sources) and compares the two builds:
 * parity at 128^2 on full_reflective d3, procedural_spheres n=64 d3 and
   glass_chain d3 (sphere centres + 1.5, target the unperturbed render):
   the packed forward's fraction of pixels more than 1e-3 from its plain
-  version and of packed residuals that differ, and the one-dispatch K6
+  version and of packed residuals that differ, and K6
   against K3 + K4 on the same inputs (max|diff| / max|K3+K4| of the loss
   and each gradient table).
 

@@ -1,10 +1,12 @@
 """The chain forward on the card beside another checkout's: K2, K3 and
 residual K2 (f32 and bf16), and K5, K6 and K7, timed in one process and
 compared bit for bit; the chain kernel's SASS census, ptxas resources and
-occupancy; and its warps' lane efficiency.
+occupancy; its warps' lane efficiency; and the tree kernel K5's resources
+and lane efficiency (``tree_rows``).
 
     python -m ray_tracer_fragment_shader_tpu_torch.forward_ab \
         [--other DIR] [--out FILE] [--sass-dir DIR] [--cpu] [--size N]
+        [--only LABEL]
 
 Forward inputs (one sample, the camera's centre rays): config 3
 (full_reflective 1024^2 d3) and config 5 (procedural_spheres n=64 2048^2
@@ -334,15 +336,22 @@ def loop_census(ins: list) -> list:
     return rows
 
 
-def ptxas_chain(log: str) -> dict:
-    """{instantiation: dict(registers, stack, spill_stores, spill_loads)}
-    of the chain kernel in a ptxas -v log."""
+def template_args(mangled: str) -> tuple:
+    """The integer template arguments of a kernel's mangled name (bools,
+    ints and enum values, in order)."""
+    return tuple(int(a) for a in re.findall(
+        r"L(?:b|i|NS_\d+[A-Za-z]+E)(-?\d+)E", mangled))
+
+
+def ptxas_kernels(log: str, kernel: str) -> dict:
+    """{template arguments: dict(registers, stack, spill_stores,
+    spill_loads)} of each instantiation of ``kernel`` in a ptxas -v log."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            cur = (inst_key(m.group(1))
-                   if "render_chain_kernel" in m.group(1) else None)
+            cur = (template_args(m.group(1))
+                   if re.search(rf"\d{kernel}I", m.group(1)) else None)
             if cur is not None:
                 out[cur] = {}
             continue
@@ -361,9 +370,45 @@ def ptxas_chain(log: str) -> dict:
     return out
 
 
+def ptxas_chain(log: str) -> dict:
+    """{instantiation: dict(registers, stack, spill_stores, spill_loads)}
+    of the chain kernel in a ptxas -v log."""
+    return {",".join(map(str, k)): v
+            for k, v in ptxas_kernels(log, "render_chain_kernel").items()}
+
+
 def inst_key(mangled: str) -> str:
     """``want_trans,form,bf16`` of a chain kernel instantiation."""
-    return ",".join(re.findall(r"L(?:b|NS_8ChainOutE)(\d)E", mangled))
+    return ",".join(map(str, template_args(mangled)))
+
+
+def occupancy(M, entry: str, *args) -> object:
+    """Blocks of 256 a SM from package ``M``'s C entry ``rtfs_<entry>``
+    (``*args`` then an int out), or "not available" where it has none."""
+    lib = M.cuda_build.load()
+    fn = getattr(lib, f"rtfs_{entry}", None)
+    if fn is None:
+        return "not available"
+    n = ctypes.c_int(0)
+    M.cuda_build.check(lib, fn(*args, ctypes.byref(n)), entry)
+    return n.value
+
+
+def print_resources(label: str, kernels: list, M, card: str) -> list:
+    """Prints and returns, for each (name, template arguments, blocks a
+    SM) of ``kernels``, ptxas's registers, stack frame and spills of that
+    instantiation in package ``M``'s build log."""
+    log = M.cuda_build.build_info.get("log", "")
+    rows = []
+    for name, args, blocks in kernels:
+        res = ptxas_kernels(log, name).get(tuple(args), {})
+        rows.append(dict(kernel=name, args=list(args), blocks_per_sm=blocks,
+                         **res))
+        print(f"resources {label} {name}<{','.join(map(str, args))}>: "
+              f"{res.get('registers')} registers, stack {res.get('stack')} "
+              f"B, spills {res.get('spill_stores')}/{res.get('spill_loads')}"
+              f" B; {blocks} blocks of 256 a SM [{card}]")
+    return rows
 
 
 def chain_census(M, sass_dir=None, tag="this") -> dict:
@@ -388,15 +433,9 @@ def chain_census(M, sass_dir=None, tag="this") -> dict:
             with open(os.path.join(sass_dir, f"{tag}_{key.replace(',', '_')}"
                                    ".sass"), "w") as f:
                 f.write("\n".join(e[2] for e in ins) + "\n")
-    lib = M.cuda_build.load()
-    if hasattr(lib, "rtfs_chain_occupancy"):
-        for key in out["loops"]:
-            wt, form, bf16 = (int(a) for a in key.split(","))
-            n = ctypes.c_int(0)
-            rc = lib.rtfs_chain_occupancy(wt, form, bf16, 4096,
-                                          ctypes.byref(n))
-            M.cuda_build.check(lib, rc, "chain_occupancy")
-            out["occupancy"][key] = n.value
+    for key in out["loops"]:
+        out["occupancy"][key] = occupancy(
+            M, "chain_occupancy", *(int(a) for a in key.split(",")), 4096)
     return out
 
 
@@ -441,6 +480,38 @@ def lane_rows(M, dev, card: str) -> list:
               f"{eff['closest']['warp_steps']} warp steps), shadow "
               f"{eff['shadow']['efficiency']:.4f} ({eff['shadow']['tests']}"
               f" tests, {eff['shadow']['warp_steps']} warp steps) [{card}]")
+    return rows
+
+
+def tree_rows(this, other, dev, card: str) -> list:
+    """K5 on fractional_glass 1024^2 d3 (f32 and bf16): each package's
+    registers, stack, spills and blocks a SM of the tree kernel's image
+    form, and the tree lanes (``opcount.tree_lane_efficiency``, from the
+    plain version: nodes traced over 32 x the warps' loop trips)."""
+    from .utils import opcount
+    preset = this.presets.fractional_glass(size=1024, depth=3)
+    rows = []
+    for bf16 in (False, True):
+        x = forward_input(this, preset, dev, bf16)
+        smem = 4 * this.K._flat_tables(x["tables"], x["kw"]["nl"]).numel()
+        args = (int(x["kw"]["want_trans"]), 0, int(bf16))
+        for tag, Mod in (("this", this), ("other", other)):
+            if Mod is not None:
+                rows += [dict(r, package=tag, bf16=bf16)
+                         for r in print_resources(
+                             f"K5 fractional_glass 1024^2 d3 ({tag})",
+                             [("render_tree_kernel", args,
+                               occupancy(Mod, "tree_occupancy", *args,
+                                         smem))], Mod, card)]
+        if not bf16:
+            kw = {k: v for k, v in x["kw"].items() if k != "bf16"}
+            eff = opcount.tree_lane_efficiency(x["tables"], x["v"], x["eye"],
+                                               **kw)
+            rows.append(dict(input="fractional_glass 1024^2 d3", **eff))
+            print(f"tree lanes fractional_glass 1024^2 d3: {eff['nodes']} "
+                  f"nodes traced in {eff['warp_trips']} warp loop trips, "
+                  f"lane efficiency {eff['efficiency']:.4f} [{card}]")
+        del x
     return rows
 
 
@@ -513,12 +584,15 @@ def _row(kernel, label, bf16, fn_of, this, other, card, timed):
     return row
 
 
-def compare_rows(this, other, dev, card, *, size=None, timed=True) -> list:
+def compare_rows(this, other, dev, card, *, size=None, timed=True,
+                 only=None) -> list:
     """Every forward and adjoint row (see the module docstring) on
-    ``dev``, at ``size``^2 if given; on the CPU the plain versions run,
-    untimed."""
+    ``dev``, at ``size``^2 if given, or those whose input's label holds
+    ``only``; on the CPU the plain versions run, untimed."""
     rows = []
     for label, preset in cases(this.presets, size):
+        if only and only not in label:
+            continue
         for bf16 in (False, True):
             x = forward_input(this, preset, dev, bf16)
             for kernel, call in forward_calls(x).items():
@@ -528,6 +602,8 @@ def compare_rows(this, other, dev, card, *, size=None, timed=True) -> list:
                     this, other, card, timed))
             del x
     for label, preset, kernel in adjoint_cases(this.presets, size):
+        if only and only not in label:
+            continue
         for bf16 in (False, True):
             x = adjoint_ab.inputs(preset, dev, bf16)
             call = adjoint_ab.calls(x, "real")[kernel]
@@ -550,6 +626,9 @@ def main(argv=None) -> int:
                          "CPU: no times, no census")
     ap.add_argument("--size", type=int, default=None,
                     help="every frame at this size squared")
+    ap.add_argument("--only", default=None,
+                    help="the rows whose input's label holds this, and no "
+                         "census or lane counts but the tree's")
     args = ap.parse_args(argv)
     this = adjoint_ab.modules()
     other = adjoint_ab.load_other(args.other) if args.other else None
@@ -571,15 +650,19 @@ def main(argv=None) -> int:
         if other is not None:
             other.cuda_build.load()
         print(f"build and load: {time.perf_counter() - t0:.1f} s")
-        census = {"this": chain_census(this, args.sass_dir, "this")}
-        print_census("this", census["this"], card)
-        if other is not None:
-            census["other"] = chain_census(other, args.sass_dir, "other")
-            print_census("other", census["other"], card)
-        lanes = lane_rows(this, dev, card)
-        rows = compare_rows(this, other, dev, card, size=args.size)
+        census, lanes = {}, []
+        if not args.only:
+            census["this"] = chain_census(this, args.sass_dir, "this")
+            print_census("this", census["this"], card)
+            if other is not None:
+                census["other"] = chain_census(other, args.sass_dir, "other")
+                print_census("other", census["other"], card)
+            lanes = lane_rows(this, dev, card)
+        trees = tree_rows(this, other, dev, card)
+        rows = compare_rows(this, other, dev, card, size=args.size,
+                            only=args.only)
         out = dict(card=card, reps=REPS, other=args.other, census=census,
-                   lanes=lanes, rows=rows)
+                   lanes=lanes, tree=trees, rows=rows)
     unequal = [f"{r['kernel']} {r['input']} {'bf16' if r['bf16'] else 'f32'}"
                for r in out["rows"] if not r.get("equal_to_other", True)]
     if other is not None and out["rows"]:

@@ -9,10 +9,13 @@ Four kernels, each behind a wrapper that counts its launches
   the L2 cotangent and the squared-error sum in its prologue, unpacks the
   residuals and runs the hand-written replay adjoint of the chain.
 * ``fused_adjoint`` (K6, csrc/adjoint_fused.cu): forward, L2 cotangent and
-  loss, and adjoint in one dispatch, the residuals kept unpacked in each
-  thread (no pack, so no 2^24 limit); on the bounce chain or, for
-  fractional-transparency scenes, the full tree.  ``mode="fused"``, and
-  the only fit path of tree scenes.
+  loss, and adjoint behind one entry, with unpacked residuals (no pack, so
+  no 2^24 limit).  On the bounce chain: the chain forward writing each hit
+  level's topology record, K4's live list, and the adjoint over it on the
+  records; its tables equal K3+K4's bit for bit.  For
+  fractional-transparency scenes the full tree, in one dispatch that keeps
+  the residuals in each thread.  ``mode="fused"``, and the only fit path
+  of tree scenes.
 * ``recompute_adjoint`` (K7, the same source): the forward re-traced and
   the adjoint run under a cotangent given from outside; the per-sample
   backward of supersampled and adaptive fits.  No pack either.
@@ -24,10 +27,10 @@ Four kernels, each behind a wrapper that counts its launches
 One thread runs one pixel.  K4, K7 and K8 run on the list of the pixels
 whose cotangent is nonzero, built on the device first (``_live_list``,
 with no host synchronisation), so a warp holds 32 pixels that add
-something; K6 runs on every pixel.  Each warp sums only the per-entity
-columns its pixels touch, each block writes one row of partial sums, and
-a last kernel adds the rows in a fixed order, so two launches give
-bit-identical tables.
+something; K6's chain builds the same list in its forward, its tree runs
+on every pixel.  Each warp sums only the per-entity columns its pixels
+touch, each block writes one row of partial sums, and a last kernel adds
+the rows in a fixed order, so two launches give bit-identical tables.
 
 Under ``RenderConfig.bf16_shading`` (``render_kwargs``'s ``bf16``) the
 forwards of K3, K6 and K7 run in their bf16 form, and K4, K8 and the
@@ -71,11 +74,12 @@ LIGHTD_COLS = 8  # pos(3) - - - - -
 #: hold (csrc/adjoint_ops.cuh::kMaxLevels, kMaxLights)
 ADJOINT_MAX_DEPTH = 15
 ADJOINT_MAX_LIGHTS = 16
-#: the tree depths K6 and K7 are built for (csrc/adjoint_fused.cu::
-#: kTreeAdjDepthCaps): 5, the reference's depth (63 preorder nodes a
-#: thread), 7, and 10, the tree forward's own limit (``TREE_MAX_DEPTH``);
-#: a launch takes the smallest that holds the scene, since CUDA reserves a
-#: kernel's local memory for every thread the card holds
+#: the tree depths K6's and K7's tree forms are built for (csrc/
+#: adjoint_fused.cu::kTreeAdjDepthCaps): 5, the reference's depth (63
+#: preorder nodes a thread), 7, and 10, the tree forward's own limit
+#: (``TREE_MAX_DEPTH``); a launch takes the smallest that holds the scene,
+#: since CUDA reserves a kernel's local memory for every thread the card
+#: holds
 TREE_ADJOINT_DEPTH_CAPS = (5, 7, 10)
 TREE_ADJOINT_MAX_DEPTH = TREE_ADJOINT_DEPTH_CAPS[-1]
 assert TREE_ADJOINT_MAX_DEPTH == TREE_MAX_DEPTH
@@ -146,7 +150,8 @@ def replay_grads(tables, v, eye, res: Dict[str, torch.Tensor], g, *,
     ``sum(g * replay)`` by autograd, where ``replay`` is the [P,3] radiance
     of the chain (``replay_chain``) or the tree (``replay_tree``) replayed
     from the residual planes ``res`` (bi, mid, lit) along the primary
-    directions ``v`` from ``eye``."""
+    directions ``v`` from ``eye``.  Without a light the radiance is 0 and
+    depends on no leaf: every table is 0."""
     leaves = tuple(t.detach().clone().requires_grad_()
                    for t in diff_tables(tables, nl))
     replay = replay_tree if tree else replay_chain
@@ -154,8 +159,9 @@ def replay_grads(tables, v, eye, res: Dict[str, torch.Tensor], g, *,
     with torch.enable_grad():  # also inside an autograd.Function's forward
         color = replay(table_geom(tables, nl, leaves), o, v, res["bi"],
                        res["mid"], res["lit"], depth=depth, atten=atten)
-        grads = torch.autograd.grad(color, leaves, grad_outputs=g,
-                                    allow_unused=True)
+        grads = ((None,) * len(leaves) if not color.requires_grad
+                 else torch.autograd.grad(color, leaves, grad_outputs=g,
+                                          allow_unused=True))
     return tuple(torch.zeros_like(t) if d is None else d
                  for t, d in zip(leaves, grads))
 
@@ -272,16 +278,40 @@ def _live_list(lib, stream, num_pixels: int, device, loss_rows, *, g=None,
     return buf, ids, count
 
 
+def _records_scratch(num_pixels: int, nodes: int, device):
+    """The scratch of K6's chain (csrc/adjoint_fused.cu::rtfs_fused_adjoint):
+    the image [P,3] f32 and the counts [P] int32 of its live pixels, the
+    8-byte records [nodes, P], and the live list's buffers as
+    ``_live_list``'s (ballots, counts, offsets, ids, count).  Returns (the
+    tensors, their pointers: img, rec, rec_n, ballots, counts, offsets, ids,
+    count)."""
+    nb = max(-(-num_pixels // ADJOINT_THREADS), 1)
+    words = nb * ADJOINT_THREADS // 32
+    rec = torch.empty((nodes, num_pixels), dtype=torch.int64, device=device)
+    # img | rec_n | ballots | counts | offsets | ids | count, 4-byte words
+    buf = torch.empty(4 * num_pixels + words + 2 * nb + max(num_pixels, 1)
+                      + 1, dtype=torch.int32, device=device)
+    base = buf.data_ptr()
+    ballots = base + 16 * num_pixels
+    ids = ballots + 4 * (words + 2 * nb)
+    return (rec, buf), (base, rec.data_ptr(), base + 12 * num_pixels,
+                        ballots, ballots + 4 * words,
+                        ballots + 4 * (words + nb), ids,
+                        ids + 4 * max(num_pixels, 1))
+
+
 def _launch_adjoint(entry: str, tables, v, nl: int, pre, post, *,
-                    live: Optional[Dict[str, Any]] = None,
+                    live: Optional[Dict[str, Any]] = None, records: int = 0,
                     bf16: bool = False):
     """Launches the C entry ``rtfs_<entry>`` on (flat tables, ns, nt, m, nl,
-    *pre, [ids, count,] *post, partial, num_blocks, stream), then
-    ``rtfs_adjoint_reduce`` over its per-block rows, and counts the launch
-    (its bf16 variant's with ``bf16``).  With ``live`` (``_live_list``'s
-    keywords) the live list is built first and the kernel runs on it.
-    Returns the column sums as (loss, dsph [ns,8], dmat [m,16], dlight
-    [max(nl,1),8]), views of the reduction's one output."""
+    *pre, [ids, count,] *post, [K6's scratch,] partial, num_blocks,
+    stream), then ``rtfs_adjoint_reduce`` over its per-block rows, and
+    counts the launch (its bf16 variant's with ``bf16``).  With ``live``
+    (``_live_list``'s keywords) the live list is built first and the kernel
+    runs on it; with ``records`` (K6's chain: the levels a pixel) the entry
+    takes ``_records_scratch``'s pointers and its loss rows, and builds the
+    list itself.  Returns the column sums as (loss, dsph [ns,8], dmat
+    [m,16], dlight [max(nl,1),8]), views of the reduction's one output."""
     if v.device.type != "cuda":
         raise ValueError(f"{entry}: kernels run on CUDA tensors, got "
                          f"{v.device}")
@@ -309,16 +339,20 @@ def _launch_adjoint(entry: str, tables, v, nl: int, pre, post, *,
     with torch.cuda.device(v.device):
         stream = ctypes.c_void_p(
             torch.cuda.current_stream(v.device).cuda_stream)
-        lst, count = (), None
+        lst, count, extra = (), None, ()
         if live is not None:
             scratch, ids, count = _live_list(lib, stream, P, v.device,
                                              loss_rows, **live)
             lst = (ids, count)
+        elif records:
+            scratch, ptrs = _records_scratch(P, records, v.device)
+            extra = (*ptrs[:6], loss_rows, *ptrs[6:])
+            count = ptrs[7]
         rc = getattr(lib, f"rtfs_{entry}")(flat.data_ptr(), ns, nt, m, nl,
-                                            *pre, *lst, *post, partial,
-                                            blocks, stream)
+                                            *pre, *lst, *post, *extra,
+                                            partial, blocks, stream)
         cuda_build.check(lib, rc, entry)
-        with_loss = live is not None and "img" in live
+        with_loss = bool(records) or (live is not None and "img" in live)
         rc = lib.rtfs_adjoint_reduce(partial, blocks, ns, m, nl, count,
                                      loss_rows if with_loss else None,
                                      nb if with_loss else 0, out.data_ptr(),
@@ -369,12 +403,15 @@ def _forward_args(eye, kw, tree: bool):
 
 def fused_adjoint(tables, v, eye, target, mask, *, tree: bool,
                   g_scale: float, **kw):
-    """K6, forward + L2 loss + adjoint in one dispatch: (loss_sum, dsph,
+    """K6, forward + L2 loss + adjoint behind one entry: (loss_sum, dsph,
     dmat, dlight) from the primary-ray directions ``v`` [P,3], the
     ``target`` [P,3] and the pixel ``mask`` [P], with cotangent
     ``g_scale*mask*(img-target)``.  ``tree`` runs the full bounce tree
     (depth <= ``TREE_ADJOINT_MAX_DEPTH``) in place of the chain.  CUDA
-    tensors launch csrc/adjoint_fused.cu; CPU tensors run
+    tensors launch csrc/adjoint_fused.cu::rtfs_fused_adjoint (the chain:
+    the records forward with the live list's marks, the rest of the live
+    list, the adjoint over it, ``fused_records_ref`` the records' plain
+    model; the tree: one dispatch), then the reduction; CPU tensors run
     ``fused_adjoint_ref``.  The other keyword arguments are
     ``render_kwargs``'s (``bf16`` runs the bf16 forward)."""
     _check(tables, v, kw["depth"], kw["nl"])
@@ -384,10 +421,37 @@ def fused_adjoint(tables, v, eye, target, mask, *, tree: bool,
     if v.device.type == "cpu":
         return fused_adjoint_ref(tables, v, eye, target, mask, tree=tree,
                                  g_scale=g_scale, **kw)
+    post = (P, *_forward_args(eye, kw, tree), g_scale)
+    if tree:  # one dispatch: no scratch
+        post += (None,) * 9
     return _launch_adjoint(
         "fused_adjoint", tables, v, kw["nl"],
-        (v.data_ptr(), target.data_ptr(), mask.data_ptr()),
-        (P, *_forward_args(eye, kw, tree), g_scale), bf16=kw["bf16"])
+        (v.data_ptr(), target.data_ptr(), mask.data_ptr()), post,
+        records=0 if tree else kw["depth"] + 1, bf16=kw["bf16"])
+
+
+def fused_records_ref(tables, v, eye, **kw):
+    """Plain model of the record scratch of K6's chain (csrc/tile_ops.cuh::
+    RecordWriter, records_forward) from the plain residual forward: (rec_n
+    [P] int32, rec [depth+1, P, 4] int64 of (bi, mid, lit bits, level)).
+    Pixel p writes rec[k, p] for its levels k < rec_n[p], each of which
+    hits (bi >= 0); the rest of its slot is never written and holds -1
+    here.  Every pixel writes its records, whatever its cotangent; the
+    kernel writes rec_n[p] for a live pixel only, and the adjoint reads
+    only the live ones'.  The keyword arguments are ``render_kwargs``'s."""
+    _, res = render_residuals_ref(tables, v, eye, tree=False, **kw)
+    bi, mid, lit = res["bi"], res["mid"], res["lit"]
+    K, P = bi.shape
+    bits = torch.zeros((K, P), dtype=torch.int64, device=v.device)
+    for li in range(lit.shape[0]):
+        bits |= lit[li].long() << li
+    hit = bi >= 0
+    rec = torch.full((K, P, 4), -1, dtype=torch.int64, device=v.device)
+    k_idx, p_idx = torch.nonzero(hit, as_tuple=True)
+    rec[k_idx, p_idx] = torch.stack([bi[k_idx, p_idx].long(),
+                                     mid[k_idx, p_idx].long(),
+                                     bits[k_idx, p_idx], k_idx], -1)
+    return hit.sum(0).to(torch.int32), rec
 
 
 def recompute_adjoint(tables, v, eye, g, *, tree: bool, **kw):
@@ -542,7 +606,7 @@ def fused_loss_grads_kernel(scene: FlatScene, camera: Camera,
                             config: RenderConfig, target,
                             prep: Optional[Dict[str, Any]] = None,
                             device=None):
-    """The one-dispatch fwd+loss+bwd (K6): returns ``(sq_err_sum,
+    """The fused fwd+loss+bwd (K6): returns ``(sq_err_sum,
     grads_c)`` as ``twophase_loss_grads_kernel``.  Fractional-transparency
     scenes take the tree form (forward and adjoint over the preorder nodes
     of the full bounce tree), as adjoint_fused.py::fused_loss_grads_pallas
@@ -739,7 +803,8 @@ def fit_value_and_grad(params, scene: FlatScene, camera: Camera,
     its field names (adjoint_fused.py::fit_value_and_grad).
 
     Single-sample configs: ``mode="twophase"`` runs the packed forward (K3)
-    and the adjoint (K4); ``mode="fused"`` the one-dispatch K6;
+    and the adjoint (K4); ``mode="fused"`` K6 (the records forward, the
+    live list and the adjoint behind one entry);
     ``mode="split"`` the residual forward (the chain kernel's unpacked
     planes), the L2 cotangent in PyTorch and K8, with no pack and so no
     2^24 limit on primitives, materials and lights.  Fractional-transparency

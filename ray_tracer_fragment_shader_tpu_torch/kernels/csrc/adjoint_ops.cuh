@@ -296,7 +296,6 @@ constexpr int kAdjWarps = kAdjThreads / 32;
 // ADJOINT_GRID_CAP).  A constant, so the assignment of pixels to blocks, and
 // with it every sum's order, is the same on every launch and every card.
 constexpr int kAdjGridCap = 1024;
-constexpr unsigned kFullMask = 0xffffffffu;
 // Floats of one node's sparse cotangents: sphere (4) then material (9).
 constexpr int kRecFloats = 13;
 
@@ -328,13 +327,6 @@ struct TreeRec {
 
 __device__ __forceinline__ NodeConst unpack_rec(const TreeRec& r) {
   return NodeConst{r.bik, r.mid, r.lits};
-}
-
-// Sum over the 32 lanes; every lane gets the same, order-fixed value.
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(kFullMask, x, off);
-  return x;
 }
 
 // The gradient sums of one adjoint block, in shared memory after the

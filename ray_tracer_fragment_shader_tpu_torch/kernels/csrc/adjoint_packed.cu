@@ -51,50 +51,29 @@ namespace rtfs {
 // Pass 1, one thread a pixel: whether its cotangent is nonzero (K4: formed
 // from img, target and mask as the adjoint forms it; else read from g),
 // per warp the ballot of those pixels, per block their count and (K4) the
-// block's sum of the squared-error terms, in a fixed order.
+// block's sum of the squared-error terms, in a fixed order
+// (tile_ops.cuh::mark_live, which K6's records forwards run too).
 __global__ void __launch_bounds__(kAdjThreads)
 live_mark_kernel(const float* __restrict__ img,
                  const float* __restrict__ target,
                  const float* __restrict__ mask, const float* __restrict__ g,
                  float g_scale, int num_pixels, unsigned* __restrict__ ballots,
                  int* __restrict__ counts, float* __restrict__ loss_rows) {
-  __shared__ int wcount[kAdjWarps];
-  __shared__ float wloss[kAdjWarps];
+  __shared__ BlockMarks marks;
+  if (threadIdx.x == 0) marks.arrived = 0;
+  __syncthreads();
   const int p = blockIdx.x * kAdjThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   bool live = false;
   float loss = 0.0f;
   if (p < num_pixels) {
     if (img != nullptr) {
-      const float mk = mask[p];
-      for (int ch = 0; ch < 3; ++ch) {
-        const float d_raw = img[3 * p + ch] - target[3 * p + ch];
-        const float d = d_raw * mk;
-        loss += d * d_raw;
-        live = live || g_scale * d != 0.0f;
-      }
+      const float im[3] = {img[3 * p], img[3 * p + 1], img[3 * p + 2]};
+      l2_term(im, target, mask[p], g_scale, p, &loss, &live);
     } else {
       live = g[3 * p] != 0.0f || g[3 * p + 1] != 0.0f || g[3 * p + 2] != 0.0f;
     }
   }
-  const unsigned b = __ballot_sync(kFullMask, live);
-  loss = warp_sum(loss);
-  if (lane == 0) {
-    ballots[blockIdx.x * kAdjWarps + warp] = b;
-    wcount[warp] = __popc(b);
-    wloss[warp] = loss;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int c = 0;
-    float l = 0.0f;
-    for (int w = 0; w < kAdjWarps; ++w) {
-      c += wcount[w];
-      l += wloss[w];
-    }
-    counts[blockIdx.x] = c;
-    if (loss_rows != nullptr) loss_rows[blockIdx.x] = l;
-  }
+  mark_live(marks, live, loss, ballots, counts, loss_rows);
 }
 
 constexpr int kScanThreads = 1024;
@@ -252,6 +231,25 @@ adjoint_reduce_kernel(const float* __restrict__ partial, int num_rows,
 // C entries (bound with ctypes from kernels/adjoint_fused.py).  Each
 // launches on `stream` and returns the launch's cudaError_t.
 
+// The live list's passes 2 and 3 on the marks (ballots [ceil(P/256) * 8],
+// counts [ceil(P/256)], at least one block's) of num_pixels pixels:
+// offsets [ceil(P/256)] (scratch), ids [P] (the first *count hold the live
+// pixels' ids in increasing order) and count [1].  K6 runs them after its
+// records forward, which marks the blocks.
+extern "C" int rtfs_live_ids(const unsigned* ballots, const int* counts,
+                             int num_pixels, int* offsets, int* ids,
+                             int* count, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = std::max(rtfs::adjoint_chunks(num_pixels), 1);
+  rtfs::live_scan_kernel<<<1, rtfs::kScanThreads, 0, st>>>(counts, blocks,
+                                                           offsets, count);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rtfs::live_scatter_kernel<<<blocks, rtfs::kAdjThreads, 0, st>>>(
+      ballots, offsets, num_pixels, ids);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The live list of num_pixels pixels: where img is given (K4), the pixels
 // whose g_scale * mask * (img - target) [P,3] is nonzero, and loss_rows
 // [ceil(P/256)] the blocks' squared-error sums; else those whose g [P,3]
@@ -271,15 +269,10 @@ extern "C" int rtfs_live_list(const float* img, const float* target,
   rtfs::live_mark_kernel<<<blocks, rtfs::kAdjThreads, 0, st>>>(
       img, target, mask, g, g_scale, num_pixels, ballots, counts,
       img != nullptr ? loss_rows : nullptr);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rtfs::live_scan_kernel<<<1, rtfs::kScanThreads, 0, st>>>(counts, blocks,
-                                                           offsets, count);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rtfs::live_scatter_kernel<<<blocks, rtfs::kAdjThreads, 0, st>>>(
-      ballots, offsets, num_pixels, ids);
-  return static_cast<int>(cudaGetLastError());
+  return rtfs_live_ids(ballots, counts, num_pixels, offsets, ids, count,
+                       stream);
 }
 
 // K4 over the live list of rtfs_live_list(img, target, mask): `tables` is

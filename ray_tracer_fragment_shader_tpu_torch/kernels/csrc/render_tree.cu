@@ -13,17 +13,23 @@
 //
 // Bound: compute, as the chain kernel (render_chain.cu), times the number of
 // live nodes; RESIDUALS adds (2+nl)*4 bytes per node of every pixel, live or
-// not.  The recursion becomes an explicit per-thread stack of depth+1
-// entries visited in the same preorder (transmitted subtree before
-// reflected; tile_ops.cuh::tree_forward), so the colour sums in the same
-// order as the JAX kernel.  A node that misses, or a child whose weight gate
-// is 0, adds exactly zero and is not visited; on a chain-exact scene the
-// tree then costs what the chain does.  Its residuals are still written,
-// with a dead lane's values (tile_ops.cuh::ResidualWriter: the visits come
-// in increasing preorder index, so the gaps are filled as they appear).
-// Both forms have a BF16 instantiation, RenderConfig.bf16_shading
-// (tile_ops.cuh's bf16 shadow sweep and Phong blend; the C entries' `bf16`).
-// This first version aims to be right; it is not tuned.
+// not.  The recursion becomes a loop that descends into a node's
+// transmitted child at once and keeps its reflected child on a per-thread
+// stack (tile_ops.cuh::tree_forward), visiting the nodes in the same
+// preorder (transmitted subtree before reflected), so the colour sums in
+// the same order as the JAX kernel.  A node that misses, or a child whose
+// weight gate is 0, adds exactly zero and is not visited; on a chain-exact
+// scene the tree then costs what the chain does.  Its residuals are still
+// written, with a dead lane's values (tile_ops.cuh::ResidualWriter: the
+// visits come in increasing preorder index, so the gaps are filled as they
+// appear).  Like the chain forward it is bound by latency (PERF.md §6):
+// its lanes are 0.98 full on fractional_glass (opcount.
+// tree_lane_efficiency), so what moved its time on an H100 was the
+// stack's traffic (40-byte entries and no push or pop for a transmitted
+// child: 7 % less time than the first design), while 4 blocks a SM (64
+// registers) spilled and slowed the residual form 14 %.  Both forms have
+// a BF16 instantiation, RenderConfig.bf16_shading (tile_ops.cuh's bf16
+// shadow sweep and Phong blend; the C entries' `bf16`).
 #include "tile_ops.cuh"
 
 namespace rtfs {
@@ -99,4 +105,16 @@ extern "C" int rtfs_render_tree_residuals(
   return static_cast<int>(rtfs::launch_render(
       rtfs::pick_tree<true>(want_trans, bf16), tables, prm, v, out,
       num_pixels, static_cast<cudaStream_t>(stream)));
+}
+
+// Blocks of the tree kernel's instantiation (want_trans, form: 0 image,
+// 1 residuals; bf16) one SM holds at once with `smem_bytes` of tables, into
+// *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int rtfs_tree_occupancy(int want_trans, int form, int bf16,
+                                   int smem_bytes, int* blocks) {
+  const rtfs::RenderKernel k = form == 0
+                                   ? rtfs::pick_tree<false>(want_trans, bf16)
+                                   : rtfs::pick_tree<true>(want_trans, bf16);
+  const cudaError_t e = rtfs::kernel_occupancy(k, smem_bytes, blocks);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -43,12 +43,25 @@ constexpr int TRI_INV_DEN = 21;
 
 constexpr float BIG = 3.0e38f;
 
+// One hit level of K6's record scratch (RecordWriter), 8 bytes: primitive
+// id, material id, lit bits and the level.  Ids stay below 2^15 (the
+// tables in shared memory hold a few thousand rows at most), and a record
+// holds at most kRecordMaxLights lit bits.
+struct __align__(8) NodeRecord {
+  short bik, mid;
+  unsigned short lits;
+  short level;
+};
+constexpr int kRecordMaxLights = 16;
+
 // Launch-time scalars.  The flat table buffer is
 // misc(16) | sph(ns*8) | tri(nt*24) | mat(m*20) | light(nl*8).  The packed
 // forward (render_chain.cu, PACKED) also writes pk[depth+1][num_pixels]
 // with the field widths bw_bi, bw_mid; the residual forwards (RESIDUALS)
-// write the unpacked planes res (ResidualWriter); the other kernels leave
-// them unset.
+// write the unpacked planes res (ResidualWriter); the record forwards
+// (RECORDS, K6's) write rec and rec_n (RecordWriter) and mark the live
+// pixels of the L2 cotangent g_scale * mask * (img - target)
+// (records_forward); the other kernels leave them unset.
 struct Params {
   int ns, nt, m, nl;
   int depth;
@@ -58,6 +71,14 @@ struct Params {
   float* pk;
   float bw_bi, bw_mid;
   float* res;
+  NodeRecord* rec;
+  int* rec_n;
+  const float* target;
+  const float* mask;
+  float g_scale;
+  unsigned* ballots;
+  int* counts;
+  float* loss_rows;
 };
 
 struct Scene {
@@ -524,61 +545,69 @@ __device__ __forceinline__ int chain_forward(const Scene& s, const Params& prm,
 struct TreeNode {
   float ox, oy, oz, vx, vy, vz;
   float thr[3];
-  int excl, level, idx;  // idx: the node's preorder index
+  int excl;       // the origin primitive
+  int level_idx;  // level << 16 | the node's preorder index
 };
 
 // The full bounce tree of one pixel (MySdlApplication.cpp:1230-1248): at
 // every hit a transmitted child weighted by the transparency T and a
 // reflected child weighted by the opacity 1-T, down to prm.depth.  The
-// recursion is an explicit per-thread stack of depth+1 entries, visited in
-// preorder (transmitted subtree first), so the colour sums in the JAX
-// kernel's order.  Calls sink(idx, bi, mid, lit_bits) at each node that hits,
-// idx its preorder index among the 2^(depth+1)-1 nodes: the transmitted
-// child of node idx at level l is idx+1, the reflected one idx+2^(depth-l).
-// A node that misses, or a child whose weight gate is 0, adds exactly zero
-// and is not visited.
+// recursion is a loop that descends into a node's transmitted child at
+// once and keeps its reflected child on a per-thread stack of at most
+// depth entries, so the nodes are visited in preorder (transmitted subtree
+// first) and the colour sums in the JAX kernel's order.  Calls sink(idx,
+// bi, mid, lit_bits) at each node that hits, idx its preorder index among
+// the 2^(depth+1)-1 nodes: the transmitted child of node idx at level l is
+// idx+1, the reflected one idx+2^(depth-l).  A node that misses, or a child
+// whose weight gate is 0, adds exactly zero and is not visited.
 template <bool WANT_TRANS, bool BF16, typename Sink>
 __device__ __forceinline__ void tree_forward(const Scene& s, const Params& prm,
                                              float vx, float vy, float vz,
                                              float col[3], Sink&& sink) {
-  TreeNode stack[kTreeMaxDepth + 1];
+  TreeNode stack[kTreeMaxDepth];
   int sp = 0;
-  stack[sp++] = TreeNode{prm.eye_x, prm.eye_y, prm.eye_z, vx, vy, vz,
-                         {1.0f, 1.0f, 1.0f}, -1, 0, 0};
-  while (sp > 0) {
-    const TreeNode nd = stack[--sp];
+  TreeNode nd{prm.eye_x, prm.eye_y, prm.eye_z, vx, vy, vz,
+              {1.0f, 1.0f, 1.0f}, -1, 0};
+  for (;;) {
     Surf f;
     int bi;
     const float* mt;
     Dirs d;
     unsigned lit_bits;
-    if (!trace_node<WANT_TRANS, BF16>(s, nd.ox, nd.oy, nd.oz, nd.vx, nd.vy,
-                                      nd.vz, nd.excl, nd.thr, col, &f, &bi,
-                                      &mt, &d, &lit_bits))
-      continue;  // a miss zeroes both children
-    sink(nd.idx, bi, f.mid, lit_bits);
-    if (nd.level == prm.depth) continue;
-    // gates of the transmitted (T != 0 and |T| > SMALL, :1238) and
-    // reflected (opacity != 0, :1243) children; pushed reflected first so
-    // the transmitted subtree is visited first
-    const float take_f = mt[13];
-    const float refl_f = mt[14];
-    if (refl_f != 0.0f) {
-      stack[sp++] = TreeNode{f.px, f.py, f.pz,
-                             d.rx * refl_f, d.ry * refl_f, d.rz * refl_f,
-                             {nd.thr[0] * (1.0f - mt[9]) * refl_f,
-                              nd.thr[1] * (1.0f - mt[10]) * refl_f,
-                              nd.thr[2] * (1.0f - mt[11]) * refl_f},
-                             bi, nd.level + 1,
-                             nd.idx + (1 << (prm.depth - nd.level))};
+    bool descend = false;
+    if (trace_node<WANT_TRANS, BF16>(s, nd.ox, nd.oy, nd.oz, nd.vx, nd.vy,
+                                     nd.vz, nd.excl, nd.thr, col, &f, &bi,
+                                     &mt, &d, &lit_bits)) {
+      const int level = nd.level_idx >> 16, idx = nd.level_idx & 0xffff;
+      sink(idx, bi, f.mid, lit_bits);
+      if (level < prm.depth) {
+        // gates of the transmitted (T != 0 and |T| > SMALL, :1238) and
+        // reflected (opacity != 0, :1243) children; the reflected one
+        // waits on the stack while the transmitted subtree is visited
+        const float take_f = mt[13];
+        const float refl_f = mt[14];
+        if (refl_f != 0.0f) {
+          stack[sp++] = TreeNode{
+              f.px, f.py, f.pz, d.rx * refl_f, d.ry * refl_f, d.rz * refl_f,
+              {nd.thr[0] * (1.0f - mt[9]) * refl_f,
+               nd.thr[1] * (1.0f - mt[10]) * refl_f,
+               nd.thr[2] * (1.0f - mt[11]) * refl_f},
+              bi, ((level + 1) << 16) | (idx + (1 << (prm.depth - level)))};
+        }
+        if (take_f != 0.0f) {
+          nd = TreeNode{f.px, f.py, f.pz,
+                        d.tx * take_f, d.ty * take_f, d.tz * take_f,
+                        {nd.thr[0] * mt[9] * take_f,
+                         nd.thr[1] * mt[10] * take_f,
+                         nd.thr[2] * mt[11] * take_f},
+                        bi, ((level + 1) << 16) | (idx + 1)};
+          descend = true;
+        }
+      }
     }
-    if (take_f != 0.0f) {
-      stack[sp++] = TreeNode{f.px, f.py, f.pz,
-                             d.tx * take_f, d.ty * take_f, d.tz * take_f,
-                             {nd.thr[0] * mt[9] * take_f,
-                              nd.thr[1] * mt[10] * take_f,
-                              nd.thr[2] * mt[11] * take_f},
-                             bi, nd.level + 1, nd.idx + 1};
+    if (!descend) {  // a miss zeroes both children
+      if (sp == 0) break;
+      nd = stack[--sp];
     }
   }
 }
@@ -624,12 +653,134 @@ struct ResidualWriter {
   }
 };
 
+// The record sink of K6's chain forward (render_chain.cu's RECORDS form):
+// pixel p's hit level n goes to prm.rec[n * num_pixels + p] ([depth+1][P]
+// NodeRecords, neighbouring threads on neighbouring addresses); n counts
+// them, and a live pixel writes the count to prm.rec_n[p]
+// (records_forward).  Only the levels that hit are written: the adjoint
+// reads a live pixel's first rec_n[p] records.
+struct RecordWriter {
+  NodeRecord* rec;  // prm.rec
+  int num_pixels, p, n;
+
+  __device__ RecordWriter(const Params& prm, int num_pixels, int p)
+      : rec(prm.rec), num_pixels(num_pixels), p(p), n(0) {}
+
+  __device__ void hit(int level, int bi, int mid, unsigned lit_bits) {
+    rec[static_cast<size_t>(n) * num_pixels + p] =
+        NodeRecord{static_cast<short>(bi), static_cast<short>(mid),
+                   static_cast<unsigned short>(lit_bits),
+                   static_cast<short>(level)};
+    ++n;
+  }
+};
+
+// ---- the live list's mark (adjoint_packed.cu::rtfs_live_list) -----------
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Sum over the 32 lanes; every lane gets the same, order-fixed value.
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(kFullMask, x, off);
+  return x;
+}
+
+// Pixel p's squared-error term, added to *loss, and whether its L2
+// cotangent g_scale * (mask * (img - target)) is nonzero, or'ed into
+// *live (K4's prologue): img is its image, mk its mask.
+__device__ __forceinline__ void l2_term(const float img[3],
+                                        const float* __restrict__ target,
+                                        float mk, float g_scale, int p,
+                                        float* loss, bool* live) {
+  for (int ch = 0; ch < 3; ++ch) {
+    const float d_raw = img[ch] - target[3 * p + ch];
+    const float d = d_raw * mk;
+    *loss += d * d_raw;
+    *live = *live || g_scale * d != 0.0f;
+  }
+}
+
+// A block's marks for the live list, in shared memory: each warp's count
+// of live pixels and loss sum, and how many warps have marked.  Thread 0
+// zeroes `arrived` before the block's first __syncthreads.
+struct BlockMarks {
+  static constexpr int kWarps = 256 / 32;
+  int wcount[kWarps];
+  float wloss[kWarps];
+  int arrived;
+};
+
+// Marks a warp of a block of 256 pixels for the live list: the ballot of
+// its live pixels (ballots[block * 8 + warp]); the block's last warp to
+// mark (an integer count in shared memory: no warp waits for the others,
+// whose work per pixel differs) writes the block's count of live pixels
+// and, where loss_rows is given, the sum of its threads' loss terms in a
+// fixed order: a butterfly over each warp, then the warps in order.
+// Every thread of the block must call it.
+__device__ inline void mark_live(BlockMarks& marks, bool live, float loss,
+                                 unsigned* __restrict__ ballots,
+                                 int* __restrict__ counts,
+                                 float* __restrict__ loss_rows) {
+  constexpr int kWarps = BlockMarks::kWarps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned b = __ballot_sync(kFullMask, live);
+  loss = warp_sum(loss);
+  if (lane != 0) return;
+  ballots[blockIdx.x * kWarps + warp] = b;
+  marks.wcount[warp] = __popc(b);
+  marks.wloss[warp] = loss;
+  __threadfence_block();
+  if (atomicAdd(&marks.arrived, 1) != kWarps - 1) return;
+  __threadfence_block();
+  const volatile BlockMarks& m = marks;
+  int c = 0;
+  float l = 0.0f;
+  for (int w = 0; w < kWarps; ++w) {
+    c += m.wcount[w];
+    l += m.wloss[w];
+  }
+  counts[blockIdx.x] = c;
+  if (loss_rows != nullptr) loss_rows[blockIdx.x] = l;
+}
+
+// K6's chain forward (render_chain.cu's RECORDS form): per pixel the
+// records of its levels that hit (`trace(p, col, rw)` traces pixel p into
+// col, hands each hit to the RecordWriter rw and returns their count) and,
+// for the live list, the block's marks (every thread marks; a pixel past
+// the frame is not live).  Only a live pixel writes its image and its
+// count: the adjoint reads no other's.
+template <typename Trace>
+__device__ __forceinline__ void records_forward(const Params& prm,
+                                                float* __restrict__ out,
+                                                int num_pixels,
+                                                BlockMarks& marks,
+                                                Trace&& trace) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  float loss = 0.0f;
+  bool live = false;
+  if (p < num_pixels) {
+    float col[3] = {0.0f, 0.0f, 0.0f};
+    RecordWriter rw(prm, num_pixels, p);
+    const int n = trace(p, col, rw);
+    l2_term(col, prm.target, prm.mask[p], prm.g_scale, p, &loss, &live);
+    if (live) {
+      out[3 * p] = col[0];
+      out[3 * p + 1] = col[1];
+      out[3 * p + 2] = col[2];
+      prm.rec_n[p] = n;
+    }
+  }
+  mark_live(marks, live, loss, prm.ballots, prm.counts, prm.loss_rows);
+}
+
 // The signature both render kernels share.
 using RenderKernel = void (*)(const float*, Params, const float*, float*,
                               int);
 
-// Launches `kernel` with one thread per pixel, 256 a block, and the tables
-// in dynamic shared memory (raising the 48 KB default limit when they need
+// Launches `kernel` with one thread per pixel, 256 a block (at least one
+// block: the records form marks an empty frame too), and the tables in
+// dynamic shared memory (raising the 48 KB default limit when they need
 // more).  Returns the launch's cudaError_t.
 inline cudaError_t launch_render(RenderKernel kernel, const float* tables,
                                  const Params& prm, const float* v, float* out,
@@ -643,8 +794,24 @@ inline cudaError_t launch_render(RenderKernel kernel, const float* tables,
     if (e != cudaSuccess) return e;
   }
   const int blocks = (num_pixels + kThreads - 1) / kThreads;
-  kernel<<<blocks, kThreads, smem, stream>>>(tables, prm, v, out, num_pixels);
+  kernel<<<blocks > 0 ? blocks : 1, kThreads, smem, stream>>>(tables, prm, v,
+                                                              out, num_pixels);
   return cudaGetLastError();
+}
+
+// Blocks of 256 threads of `kernel` one SM holds at once with `smem_bytes`
+// of dynamic shared memory, into *blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns its cudaError_t.
+template <typename Kernel>
+inline cudaError_t kernel_occupancy(Kernel kernel, int smem_bytes,
+                                    int* blocks) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, 256, static_cast<size_t>(smem_bytes));
 }
 
 }  // namespace rtfs

@@ -60,6 +60,9 @@ _ENTRIES = {
     # + res (the unpacked residual planes)
     "rtfs_render_chain_residuals": _RENDER_ARGS + [_P, _P],
     "rtfs_render_tree_residuals": _RENDER_ARGS + [_P, _P],
+    # + rec rec_n target mask g_scale ballots counts loss_rows (K6's chain
+    # forward)
+    "rtfs_render_chain_records": _RENDER_ARGS + [_P] * 4 + [_F] + [_P] * 4,
     # tables; ns nt m nl; v img target mask pk; ids count; num_pixels; eye;
     # depth; atten g_scale bw_bi bw_mid; want_trans; partial num_blocks;
     # stream
@@ -69,13 +72,15 @@ _ENTRIES = {
     # img target mask g; g_scale; num_pixels; ballots counts offsets
     # loss_rows ids count; stream
     "rtfs_live_list": [_P] * 4 + [_F, _I] + [_P] * 6 + [_P],
+    # ballots counts; num_pixels; offsets ids count; stream
+    "rtfs_live_ids": [_P] * 2 + [_I] + [_P] * 3 + [_P],
     # partial num_rows ns m nl count loss_rows num_loss_rows out stream
     "rtfs_adjoint_reduce": [_P] + [_I] * 4 + [_P, _P, _I, _P, _P],
     # tables; ns nt m nl; v target mask; num_pixels; eye; depth; small
-    # atten; white_id black_id want_trans tree bf16; g_scale; partial
-    # num_blocks; stream
+    # atten; white_id black_id want_trans tree bf16; g_scale; img rec rec_n
+    # ballots counts offsets loss_rows ids count; partial num_blocks; stream
     "rtfs_fused_adjoint": ([_P] + [_I] * 4 + [_P] * 3 + [_I] + [_F] * 3
-                           + [_I] + [_F] * 2 + [_I] * 5 + [_F]
+                           + [_I] + [_F] * 2 + [_I] * 5 + [_F] + [_P] * 9
                            + [_P, _I, _P]),
     # as rtfs_fused_adjoint with the cotangent g and the live list (ids
     # count) for target and mask, and no g_scale
@@ -84,6 +89,13 @@ _ENTRIES = {
                                + [_P, _I, _P]),
     # want_trans form bf16 smem_bytes blocks (render_chain.cu)
     "rtfs_chain_occupancy": [_I] * 4 + [_P],
+    # want_trans form bf16 smem_bytes blocks (render_tree.cu)
+    "rtfs_tree_occupancy": [_I] * 4 + [_P],
+    # tree external_g want_trans bf16 depth smem_bytes blocks (the
+    # one-dispatch kernel); want_trans smem_bytes blocks (K6's chain
+    # adjoint) (adjoint_fused.cu)
+    "rtfs_fused_occupancy": [_I] * 6 + [_P],
+    "rtfs_records_occupancy": [_I] * 2 + [_P],
     # tables; ns nt m nl; v g bi mid lit; ids count; num_pixels; eye;
     # depth; atten; want_trans; partial num_blocks; stream
     "rtfs_fit_grads": ([_P] + [_I] * 4 + [_P] * 5 + [_P] * 2 + [_I]

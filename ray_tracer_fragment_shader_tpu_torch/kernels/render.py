@@ -819,6 +819,24 @@ def render_residuals(tables, v, eye: Sequence[float], *, tree: bool, **kw):
     return img, dict(bi=buf[0], mid=buf[1], lit=buf[2:])
 
 
+def _pack_fields(nt: int, ns: int, m: int) -> Tuple[int, int]:
+    """(bw_bi, bw_mid): the powers of two above the primitive ids + 2 and
+    the material ids + 1."""
+    bw_bi = 1
+    while bw_bi < nt + ns + 2:
+        bw_bi *= 2
+    bw_mid = 1
+    while bw_mid < m + 1:
+        bw_mid *= 2
+    return bw_bi, bw_mid
+
+
+def pack_fits(nt: int, ns: int, m: int, nl: int) -> bool:
+    """Whether ``pack_widths`` holds the scene (no 2^24 overflow)."""
+    bw_bi, bw_mid = _pack_fields(nt, ns, m)
+    return bw_bi * bw_mid * (2 ** nl) <= 2 ** 24
+
+
 def pack_widths(nt: int, ns: int, m: int, nl: int) -> Tuple[float, float]:
     """Field widths (bw_bi, bw_mid) of the single-plane packed residual: one
     f32 holds ``(bi+1) + mid*bw_bi + lit_bits*bw_bi*bw_mid`` exactly (every
@@ -826,13 +844,8 @@ def pack_widths(nt: int, ns: int, m: int, nl: int) -> Tuple[float, float]:
     Raises if the scene exceeds the 2^24 f32 exact-integer budget
     (render_pallas.py::pack_widths).  Only K3/K4 (``render_packed``,
     ``adjoint_packed``) take the pack."""
-    bw_bi = 1
-    while bw_bi < nt + ns + 2:
-        bw_bi *= 2
-    bw_mid = 1
-    while bw_mid < m + 1:
-        bw_mid *= 2
-    if bw_bi * bw_mid * (2 ** nl) > 2 ** 24:
+    bw_bi, bw_mid = _pack_fields(nt, ns, m)
+    if not pack_fits(nt, ns, m, nl):
         raise ValueError(
             f"packed residual overflows f32 exact integers: "
             f"{nt + ns} primitives x {m} materials x {nl} lights")

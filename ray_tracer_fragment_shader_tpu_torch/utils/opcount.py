@@ -581,3 +581,41 @@ def step_work(scene, camera, config, target=None, *, mode: str = "twophase",
                 kernels=["render_chain_residuals", "fit_grads"],
                 launch=lambda: AF.fit_grads(t, v, eye, *split_inputs(),
                                             **fkw))
+
+
+def tree_lane_efficiency(tables, v, eye, *, nl: int, depth: int,
+                         small: float, atten: float, checker_mats,
+                         want_trans: bool, bf16: bool = False) -> dict:
+    """How full the lanes of the tree kernel's warps are (one pixel a lane,
+    tile_ops.cuh::tree_forward, whose loop traces one node of the lane's
+    stack a trip), from the plain version's residual planes on these
+    inputs: ``nodes`` (nodes traced over all lanes: the root, and each
+    child whose parent hits and whose gate, the parent material's
+    take_trans or refl_ok, is set), ``warp_trips`` (the sum over warps of
+    the most nodes one lane of the warp traces) and ``efficiency``, nodes /
+    (WARP x warp_trips).  A ragged last warp counts its missing lanes
+    idle."""
+    _, res = render_residuals_ref(tables, v, eye, tree=True, nl=nl,
+                                  depth=depth, small=small, atten=atten,
+                                  checker_mats=checker_mats,
+                                  want_trans=want_trans, bf16=bf16)
+    bi, mid = res["bi"], res["mid"].long()
+    mat = tables["mat"]
+    traced = torch.ones_like(bi[0], dtype=torch.int64)
+
+    def visit(idx: int, level: int):
+        nonlocal traced
+        if level == depth:
+            return
+        hit = bi[idx] >= 0
+        for col, child in ((13, idx + 1), (14, idx + (1 << (depth - level)))):
+            gate = mat[mid[idx], col] != 0.0
+            traced = traced + (hit & gate).long()
+            visit(child, level + 1)
+    visit(0, 0)
+    pad = -traced.shape[0] % WARP
+    per_warp = torch.nn.functional.pad(traced, (0, pad)).reshape(-1, WARP)
+    nodes = int(traced.sum())
+    trips = int(per_warp.max(1).values.sum())
+    return dict(nodes=nodes, warp_trips=trips,
+                efficiency=nodes / (WARP * trips) if trips else 1.0)

@@ -764,3 +764,69 @@ def test_redesigned_chain_forward_matches_plain(cuda, nl, depth, bf16):
         assert all(torch.equal(p, q) for p, q in zip(a[1:], ref[1:])), kernel
         imgs[kernel] = a[0]
     assert all(torch.equal(imgs["render_chain"], i) for i in imgs.values())
+
+
+# ---- K6 redesigned: on the chain the records forward, the live list and
+# the adjoint on the records; on the tree one dispatch -----------------------
+
+@pytest.mark.parametrize("depth", [0, 5])
+@pytest.mark.parametrize("nl", [0, 1, 2, 15])
+def test_redesigned_k6_matches_plain_and_k3k4(cuda, nl, depth):
+    """K6 on a 57^2 frame (3249 pixels: a ragged last warp and block) of
+    config 5's primitives under nl lights, every pixel live: twice
+    bit-identical, within 1e-3 of max|plain| (loss 1e-5 relative), and
+    equal to K3+K4 bit for bit where the pack holds the scene."""
+    x = adjoint_ab.inputs(chain_scene(nl, depth, 57), cuda)
+    assert x["v"].shape[0] == 3249 and not x["tree"]
+    assert ("akw" in x) == (nl != 15)
+    report = adjoint_ab.hold(x, "live")
+    assert "fused_adjoint" in report
+
+
+@pytest.mark.parametrize("cot", ["zero", "one"])
+def test_redesigned_k6_edge_cotangents(cuda, cot):
+    """All-zero: every table exactly 0 and K6's loss, the full sum, equal
+    to K4's; one live pixel: some table nonzero, the loss K4's."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    x = adjoint_ab.inputs(presets.full_reflective(size=N, depth=3), cuda)
+    adjoint_ab.hold(x, cot)
+    fns = adjoint_ab.calls(x, cot)
+    k6 = adjoint_ab.run(AF, fns["fused_adjoint"])
+    k4 = adjoint_ab.run(AF, fns["adjoint_packed"])
+    assert torch.equal(k6[0], k4[0]) and k6[0].item() > 0
+    if cot == "zero":
+        assert all(not bool(t.any()) for t in k6[1:])
+    else:
+        assert any(bool(t.any()) for t in k6[1:])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("depth", [5, 7, 10])
+def test_redesigned_k6_tree_at_each_cap(cuda, depth, bf16):
+    """The tree K6 on ``presets.glass_cube`` (trees that hit at every
+    level) at depths 5, 7 and 10, f32 and bf16: within 1e-3 of
+    max|plain|, twice bit-identical."""
+    x = adjoint_ab.inputs(presets.glass_cube(size=48, depth=depth), cuda,
+                          bf16)
+    assert x["tree"]
+    adjoint_ab.hold(x, "real")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("depth", [0, 3, 5])
+def test_tree_forward_image_and_planes(cuda, depth, bf16):
+    """K5 and residual K5 on a 57^2 frame of fractional_glass: two launches
+    bit-identical, K5's image equal to residual K5's bit for bit, the
+    planes equal to the plain version's, the image within the budget."""
+    scene, cam, cfg = presets.fractional_glass(size=57, depth=depth)
+    cfg = dataclasses.replace(cfg, bf16_shading=bf16)
+    tables, v, eye, kw = inputs(scene, cam, cfg, cuda)
+    img = K.render_tree(tables, v, eye, **kw)
+    img2, res = K.render_residuals(tables, v, eye, tree=True, **kw)
+    again = K.render_tree(tables, v, eye, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(img, again) and torch.equal(img, img2)
+    ref_img, ref = K.render_residuals_ref(tables, v, eye, tree=True, **kw)
+    assert_close_frac(ref_img, img, 0.01)
+    assert all(torch.equal(res[k], ref[k]) for k in ref)
