@@ -185,6 +185,19 @@ Phases (each raises on failure; the script then exits non-zero):
    equal to the plain version's, K5's image equal to residual K5's bit
    for bit); and, with the counters zeroed, a fused fit step at config 5
    2048^2 (K6 alone) equal to the two-phase step bit for bit.
+18. the core renderer (``core_phase``: core/renderer.py, plain PyTorch on
+   the card, no kernel; the launch counters must read zero across it):
+   its images at config 3 1024^2 d3 (chain), reference_demo 500^2 d5
+   16-spp adaptive (one jitter tensor fed to both) and fractional_glass
+   1024^2 d3 (tree) against the kernel path's, phase 2's budget; its
+   uniform-cotangent gradients of mean(render_image) at config 3 against
+   ``render_image_diff``'s (5e-3 of max for the geometry, 3e-2 for light
+   and materials, tests/test_adjoint.py:47-49), every table nonzero;
+   ``fit_soft`` and the CLI's ``fit --views 3`` at 128^2 (finite, the loss
+   falls); and the host-clock times of the core forward frame and
+   ``l2_loss`` fwd+bwd step at config 3 beside K2's frame and the K3+K4
+   step, with the step's peak memory and the kernel path's factor over
+   naive autodiff.
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.  The bf16 rows
@@ -198,6 +211,7 @@ port's package beside this file, it fails before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1329,6 +1343,271 @@ def k6_phase(dev, card, launches, errs):
     del steps, params, target
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
+
+def host_ms(fn, reps: int) -> list:
+    """Host-clock times of ``reps`` calls of ``fn``, each ending in a
+    synchronize, after one warm-up call; ms, sorted."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)
+
+
+def core_phase(dev, card):
+    """Phase 18: the core renderer (core/renderer.py, plain PyTorch on the
+    card, no kernel) and the fits built on its autograd.  Its images are
+    held against the kernel path's, its config 3 gradients against
+    ``render_image_diff``'s, and the counters must read zero across it;
+    then ``fit_soft`` and the CLI's ``fit --views 3``, and the times of
+    the naive-autodiff baseline beside the kernel path's."""
+    import numpy as np
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch import cli
+    from ray_tracer_fragment_shader_tpu_torch.core.renderer import (
+        render_image)
+    from ray_tracer_fragment_shader_tpu_torch.core.topology import (
+        same_topology)
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import (FitParams,
+                                                              l2_loss)
+    from ray_tracer_fragment_shader_tpu_torch.diff.soft import fit_soft
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
+    from ray_tracer_fragment_shader_tpu_torch.kernels.adjoint import (
+        render_image_diff)
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import (Camera,
+                                                               sample_jitter)
+    from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    t18 = time.perf_counter()
+
+    def core(fn):
+        """Runs ``fn`` with the counters zeroed; none may count."""
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in K.LAUNCHES.items() if c}
+        check(not counts, f"the core renderer launched kernels: {counts}")
+        return out
+
+    # -- 1. the core's images against the kernel path's, phase 2's budget
+    demo, demo_cam, demo_cfg = presets.reference_demo()
+    demo_cfg = dataclasses.replace(demo_cfg, adaptive=True)
+    gen = torch.Generator(dev).manual_seed(0)
+    P = demo_cfg.width * demo_cfg.height
+    demo_jit = torch.stack([sample_jitter(gen, P, demo_cfg.jitter_scale)
+                            for _ in range(demo_cfg.samples)])
+    for label, (scene, cam, cfg), budget, jit in (
+            ("config 3 full_reflective 1024^2 d3 (chain)",
+             presets.full_reflective(size=1024, depth=3), 0.01, None),
+            ("reference_demo 500^2 d5 16-spp adaptive (shared jitter)",
+             (demo, demo_cam, demo_cfg), 0.02, demo_jit),
+            ("fractional_glass 1024^2 d3 (tree)",
+             presets.fractional_glass(size=1024, depth=3), 0.01, None)):
+        with torch.no_grad():
+            img = core(lambda: render_image(scene, cam, cfg, jitter=jit,
+                                            device=dev))
+        ref = K.render_image_kernel(scene, cam, cfg, jitter=jit, device=dev)
+        r = compare(img, ref, budget)
+        print(f"check core {label}: {r['frac']:.5f} of pixels > {FRAC_TOL} "
+              f"from the kernel path's image (budget {budget}), max abs "
+              f"err {r['max_abs_err']:.4g}, mean {r['mean']:.6f} vs "
+              f"{r['plain_mean']:.6f} (rel {r['mean_rel']:.2e}); no kernel "
+              f"launched")
+        check(r["ok"], f"the core image differs from the kernel's: {label}")
+    del demo_jit, img, ref
+
+    # -- 2. config 3's uniform-cotangent gradients: core autograd against
+    # render_image_diff (tests/test_adjoint.py:47-49's tolerances).  Each
+    # render's image is kept, and the tables are taken under the uniform
+    # cotangent 1/(3P) and under it restricted to three classes of pixels:
+    # where the core chain and the kernel's residuals took another
+    # topology (another primitive, material or shadow on some level:
+    # core/topology.py), each side differentiates its own branch; where the
+    # topology is the same but the colours part by more than 1e-3, the hit
+    # is ill-conditioned (on the CPU at 128^2 the one such pixel, an
+    # inter-reflection between two spheres, carries 0.79 of the rest's
+    # centre table max and takes its error from 6.8e-4 to 2.9e-3:
+    # tests/test_torch_core.py); the rest, the same topology with the
+    # colours agreeing, is held.  At 32^2 the JAX test's
+    # uniform cotangent drowns the first two classes; at 1024^2 their share
+    # of a sphere-centre table is larger than its 5e-3
+    scene, cam, cfg = presets.full_reflective(size=1024, depth=3)
+    camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+    out = {}
+    for label, render in (("core", render_image),
+                          ("render_image_diff", render_image_diff)):
+        params = FitParams.from_scene(scene).to(dev)
+
+        def fwd():
+            return render(params.into_scene(scene), camera, cfg, device=dev)
+        img = core(fwd) if label == "core" else fwd()
+        out[label] = (params, img)
+    (pc, ic), (pk, ik) = out["core"], out["render_image_diff"]
+    _, res = K.render_forward_with_residuals(scene, camera, cfg, device=dev)
+    same = core(lambda: same_topology(scene, camera, cfg, res))[..., None]
+    parts = (ic - ik).abs().amax(-1, keepdim=True) > FRAC_TOL
+    classes = {"uniform": torch.ones_like(same),
+               "held": same & ~parts,
+               "other topology": ~same,
+               "ill-conditioned": same & parts}
+    P3 = ic.numel()
+    print(f"check core gradients config 3 1024^2 d3: "
+          f"{classes['other topology'].float().mean().item():.6f} of pixels "
+          f"where the core chain and the kernel's residuals take another "
+          f"topology, {classes['ill-conditioned'].float().mean().item():.6f}"
+          f" of the same topology whose colours part by > {FRAC_TOL}, "
+          f"{parts.float().mean().item():.6f} whose colours part")
+    grads = {}
+    for cot, m in classes.items():
+        w = m.expand_as(ic).float() / P3
+        for label, (params, img) in out.items():
+            g = torch.autograd.grad(img, [getattr(params, f) for f in FIELDS],
+                                    grad_outputs=w, retain_graph=True)
+            grads[cot, label] = dict(zip(FIELDS, g))
+    # a third witness: the core's geometry gradient in float64, on the held
+    # pixels where its colours agree with both float32 images within 1e-3
+    # too; the float32 sides part from it by their own rounding
+    geo = ("sph_center", "sph_radius")
+    s64, cam64, cfg64 = presets.full_reflective(size=1024, depth=3,
+                                                dtype=np.float64)
+    s64 = s64.to(dev)
+    l64 = [getattr(s64, f).detach().clone().requires_grad_() for f in geo]
+    s64 = s64.replace(**dict(zip(geo, l64)))
+    img64 = core(lambda: render_image(s64, Camera.from_config(
+        cam64, cfg64.width, cfg64.height, dtype=torch.float64, device=dev),
+        cfg64, device=dev))
+    w64 = (classes["held"]
+           & ((img64 - ic.double()).abs().amax(-1, keepdim=True) <= FRAC_TOL)
+           & ((img64 - ik.double()).abs().amax(-1, keepdim=True)
+              <= FRAC_TOL)).expand_as(img64).double() / P3
+    g64 = {"float64": dict(zip(geo, torch.autograd.grad(img64, l64,
+                                                        grad_outputs=w64)))}
+    for label, (params, img) in out.items():
+        g64[label] = dict(zip(geo, torch.autograd.grad(
+            img, [getattr(params, f) for f in geo],
+            grad_outputs=w64.float(), retain_graph=True)))
+    print(f"check core gradients config 3 1024^2 d3, float64 witness: "
+          f"{1.0 - w64[..., 0].gt(0).float().mean().item():.6f} of pixels "
+          f"left out (the held class's and those where the core in float64 "
+          f"parts by > {FRAC_TOL} from either)")
+    del img64, s64, l64, w64
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        tol = 5e-3 if f in geo else 3e-2
+        rels = {cot: rel_err(grads[cot, "render_image_diff"][f],
+                             grads[cot, "core"][f]) for cot in classes}
+        a = grads["held", "core"][f]
+        if f in geo:
+            r64 = [rel_err(g64[side][f].double(), g64["float64"][f])
+                   for side in ("core", "render_image_diff")]
+            print(f"check core gradient {f} config 3 1024^2 d3, float64 "
+                  f"witness, max|diff|/max|float64|: the core {r64[0]:.3g}, "
+                  f"render_image_diff {r64[1]:.3g}; between them "
+                  f"{rel_err(g64['render_image_diff'][f], g64['core'][f]):.3g}")
+        weight = {cot: grads[cot, "core"][f].abs().max().item()
+                  / max(a.abs().max().item(), 1e-30)
+                  for cot in ("other topology", "ill-conditioned")}
+        print(f"check core gradient {f} config 3 1024^2 d3 against "
+              f"render_image_diff, max|diff|/max|core|: uniform cotangent "
+              f"{rels['uniform']:.3g}; held (same topology, colours "
+              f"agreeing) {rels['held']:.3g} (tol {tol}); other topology "
+              f"{rels['other topology']:.3g}, ill-conditioned "
+              f"{rels['ill-conditioned']:.3g} (their max|core| "
+              f"{weight['other topology']:.3g} and "
+              f"{weight['ill-conditioned']:.3g} of the held's "
+              f"{a.abs().max().item():.4g})")
+        check(bool(torch.isfinite(a).all()) and a.abs().max().item() > 0,
+              f"the core gradient {f} is zero or not finite")
+        check(rels["held"] < tol,
+              f"the core gradient {f} differs: {rels['held']:.3g}")
+    del grads, out, pc, pk, ic, ik, same, parts, classes, res, g64
+
+    # -- 3. the fits built on the core: fit_soft, and the CLI's multi-view
+    # recipe (3 orbit views, 32-64-128 pyramid)
+    fscene, fcam, fcfg = presets.fit_target(size=128)
+    target = core(lambda: render_image(fscene, fcam, fcfg, device=dev))
+    init = FitParams.from_scene(fscene)
+    with torch.no_grad():
+        init.sph_center += torch.tensor([4.0, -2.0, 3.0])
+    _, hist = core(lambda: fit_soft(fscene, fcam, fcfg, target, params=init,
+                                    steps=8, sigmas=(2.0,), device=dev))
+    print(f"path fit_soft fit_target 128^2, 8 Adam steps: loss "
+          f"{hist[0]:.6g} -> {hist[-1]:.6g} (min {min(hist):.6g})")
+    check(all(math.isfinite(h) for h in hist) and min(hist) < hist[0],
+          "fit_soft's loss did not fall")
+    # the CLI's recipe with its restart race and light polish cut short
+    # (cmd_fit imports fit_multiview when it runs)
+    from ray_tracer_fragment_shader_tpu_torch.diff import multiview
+    full_recipe = multiview.fit_multiview
+    multiview.fit_multiview = functools.partial(
+        full_recipe, restarts=2, restart_steps=3, light_polish_steps=5)
+    t0 = time.perf_counter()
+    try:
+        _, hist = cli.main(["fit", "--views", "3", "--size", "128",
+                            "--steps", "30", "--lr", "0.3", "--out-dir",
+                            os.path.join(OUT_DIR, "fit_views3")])
+    finally:
+        multiview.fit_multiview = full_recipe
+    torch.cuda.synchronize()
+    print(f"path cli fit --views 3 --size 128: {len(hist)} losses "
+          f"{hist[0]:.6g} -> {hist[-1]:.6g} (min {min(hist):.6g}), "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(all(math.isfinite(h) for h in hist) and min(hist) < hist[0],
+          "the multi-view fit's loss did not fall")
+
+    # -- 4. the naive-autodiff baseline beside the kernel path, config 3
+    params = FitParams.from_scene(scene).to(dev)
+    target = K.render_image_kernel(scene, camera, cfg, device=dev)
+    with torch.no_grad():
+        params.sph_center += 1.5
+
+    def core_step():
+        params.zero_grad()
+        l2_loss(params, scene, camera, cfg, target, device=dev).backward()
+
+    @torch.no_grad()
+    def core_frame():
+        core(lambda: render_image(scene, camera, cfg, device=dev))
+
+    @torch.no_grad()
+    def kernel_frame():
+        K.render_image_kernel(scene, camera, cfg, device=dev)
+
+    prep = AF.prepare_fit_inputs(camera, cfg, target, device=dev)
+    pairs = {  # what: ((core label, fn), (kernel path label, fn))
+        "forward frame": (("core forward frame", core_frame),
+                          ("kernel forward frame (K2)", kernel_frame)),
+        "fwd+bwd step": (("core l2_loss fwd+bwd step",
+                          lambda: core(core_step)),
+                         ("kernel fwd+bwd step (K3+K4)",
+                          lambda: AF.fit_value_and_grad(
+                              params, scene, camera, cfg, target, prep=prep,
+                              device=dev)))}
+    for what, sides in pairs.items():
+        med = []
+        for label, fn in sides:
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = host_ms(fn, 3)
+            peak = torch.cuda.max_memory_allocated(dev)
+            med.append(ms[1])
+            print(f"time {label} config 3 1024^2 d3: {ms[1]:.3f} ms (host "
+                  f"clock, median of 3: {[round(t, 3) for t in ms]}), "
+                  f"{cfg.width * cfg.height / ms[1] * 1e-3:.2f} M rays/s, "
+                  f"peak memory {peak / 2**30:.3f} GiB "
+                  f"(max_memory_allocated); {card}")
+        print(f"time kernel path over naive autodiff, {what} config 3: "
+              f"{med[0] / med[1]:.1f}x ({med[0]:.3f} / {med[1]:.3f} ms); "
+              f"{card}")
+    del params, target, prep
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s")
 
 
 def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
@@ -2469,6 +2748,9 @@ def main():
 
     # ---- 17. K6 redesigned for the card, and K5 --------------------------
     k6_phase(dev, card, launches, errs)
+
+    # ---- 18. the core renderer and the fits on its autograd ---------------
+    core_phase(dev, card)
 
     kernels = []
     for k in list(KERNEL_SOURCES) + list(BF16_ROWS):

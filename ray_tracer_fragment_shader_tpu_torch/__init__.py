@@ -5,6 +5,8 @@ The port of ``ray_tracer_fragment_shader_tpu`` (JAX/Pallas), which stays the
 reference it is tested against.  It imports torch and numpy, never jax.
 """
 from .config import CameraConfig, RenderConfig
+from .core.renderer import (render_image, render_image_jit, render_pixels,
+                            render_rays)
 from .diff.fit import FitParams, fit, make_fit_step_kernel
 from .kernels.adjoint_fused import fit_value_and_grad
 from .kernels.render import render_image_kernel
@@ -18,5 +20,6 @@ __all__ = [
     "CameraConfig", "RenderConfig", "Camera", "FlatScene", "Material",
     "SceneBuilder", "PRESETS", "concat_scenes", "convert_board_coordinate",
     "render_image_kernel", "FitParams", "fit", "make_fit_step_kernel",
-    "fit_value_and_grad",
+    "fit_value_and_grad", "render_image", "render_image_jit",
+    "render_pixels", "render_rays",
 ]

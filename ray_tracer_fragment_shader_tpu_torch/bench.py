@@ -18,13 +18,21 @@ kernels' own device time and their share beside it.
 Knobs, as the JAX bench's: ``BENCH_SIZE`` (1024), ``BENCH_DEPTH`` (3),
 ``BENCH_ITERS`` (64), ``BENCH_REPS`` (5), ``BENCH_FORWARD_ONLY`` (0),
 ``BENCH_PRESET`` (``full_reflective`` = config 3, or
-``procedural_spheres`` = config 5's 64 spheres) and ``BENCH_ADJOINT``
-(``twophase`` = K3 + K4, ``fused`` = K6, ``fused2`` = ``mode="split"``).
-``BENCH_BACKEND=xla`` (and any adjoint but those three) needs the core
-renderer, not ported (ROADMAP queue 1 item 4); ``BENCH_BLOCK_H``,
-``BENCH_BLOCK_W`` and ``BENCH_CHUNK`` set the TPU kernels' tile policy,
-which the CUDA kernels do not take (a thread a pixel, 256 a block).  Each
-raises ``ValueError`` naming why.
+``procedural_spheres`` = config 5's 64 spheres), ``BENCH_ADJOINT``
+(``twophase`` = K3 + K4, ``fused`` = K6, ``fused2`` = ``mode="split"``;
+any other value the residual forward and autograd through the replay,
+``kernels/adjoint.py::l2_loss_kernel``, as the JAX bench's
+``l2_loss_pallas``), ``BENCH_BACKEND`` (the kernels, ``cuda`` or the JAX
+name ``pallas``, by default; ``xla`` the core renderer,
+``core/renderer.py``: its forward, or the ``diff/fit.py::l2_loss``
+autograd step, whatever the adjoint) and ``BENCH_CHUNK`` (the core
+renderer's ``chunk_size``).  ``BENCH_BLOCK_H`` and ``BENCH_BLOCK_W`` set
+the TPU kernels' tile policy, which the CUDA kernels do not take (a
+thread a pixel, 256 a block): each raises ``ValueError`` naming why.  The
+SOL fields are null where no op count covers the step (the core renderer
+and the replay: ``opcount.step_work`` counts the kernels).  On the card
+the line also gives ``peak_memory_bytes``, the step's
+``torch.cuda.max_memory_allocated``.
 
 Timing (``utils/timing.py``): the per-step time is the difference of an
 N-step and a 1-step run over N-1, each run ending in a synchronize, the
@@ -55,9 +63,10 @@ UNPORTED = {
                      "thread a pixel, 256 a block, and take no tile policy",
     "BENCH_BLOCK_W": "the TPU kernels' tile width; the CUDA kernels run a "
                      "thread a pixel, 256 a block, and take no tile policy",
-    "BENCH_CHUNK": "the XLA renderer's chunk size; the core renderer is not "
-                   "ported (ROADMAP queue 1 item 4)",
 }
+#: the kernel paths' adjoints (``fit_value_and_grad`` modes), by the JAX
+#: bench's names; any other BENCH_ADJOINT runs the replay
+#: (``l2_loss_kernel``)
 ADJOINT_MODES = {"twophase": "twophase", "fused": "fused", "fused2": "split"}
 
 
@@ -68,16 +77,10 @@ def knobs(env) -> dict:
         if env.get(key):
             raise ValueError(f"{key} is not supported by the port: {why}")
     backend = env.get("BENCH_BACKEND", "cuda")
-    if backend not in ("cuda", "pallas"):
-        raise ValueError(f"BENCH_BACKEND={backend} is not supported by the "
-                         f"port: the XLA path needs the core renderer, not "
-                         f"ported (ROADMAP queue 1 item 4); the kernels "
-                         f"(the JAX bench's 'pallas') run by default")
+    if backend not in ("cuda", "pallas", "xla"):
+        raise ValueError(f"BENCH_BACKEND={backend}: cuda (the kernels; the "
+                         f"JAX bench's 'pallas') or xla (the core renderer)")
     adjoint = env.get("BENCH_ADJOINT", "twophase")
-    if adjoint not in ADJOINT_MODES:
-        raise ValueError(f"BENCH_ADJOINT={adjoint}: the port runs "
-                         f"{sorted(ADJOINT_MODES)}; the JAX bench's XLA "
-                         f"replay needs the core renderer, not ported")
     preset = env.get("BENCH_PRESET", "full_reflective")
     if preset not in ("full_reflective", "procedural_spheres"):
         raise ValueError(f"BENCH_PRESET={preset}: full_reflective or "
@@ -87,7 +90,22 @@ def knobs(env) -> dict:
                 iters=int(env.get("BENCH_ITERS", "64")),
                 reps=int(env.get("BENCH_REPS", "5")),
                 forward_only=env.get("BENCH_FORWARD_ONLY", "0") == "1",
-                preset=preset, adjoint=adjoint)
+                preset=preset, adjoint=adjoint,
+                core=backend == "xla",
+                chunk=int(env["BENCH_CHUNK"]) if env.get("BENCH_CHUNK")
+                else None)
+
+
+def path_of(k: dict) -> str:
+    """What the bench's step runs for knobs ``k``: ``core`` (the core
+    renderer and its autograd), ``forward`` (the forward kernel, whatever
+    the adjoint), a ``fit_value_and_grad`` mode, or ``replay``
+    (``l2_loss_kernel``)."""
+    if k["core"]:
+        return "core"
+    if k["forward_only"]:
+        return "forward"
+    return ADJOINT_MODES.get(k["adjoint"], "replay")
 
 
 def setup(preset, forward_only: bool, dev) -> dict:
@@ -116,7 +134,13 @@ def time_steps(s: dict, *, forward_only: bool, mode: str, iters: int,
                reps: int, dev) -> dict:
     """``scan_diff_median`` of the bench's step on ``setup``'s ``s``: step
     k moves the sphere centres (forward only: the eye) by
-    linspace(0, 1e-5, iters)[k]; ``prep=`` is built once."""
+    linspace(0, 1e-5, iters)[k]; ``prep=`` is built once.  ``mode``
+    (``path_of``): a ``fit_value_and_grad`` mode, ``replay``
+    (``l2_loss_kernel`` and its ``.backward()``) or ``core`` (the core
+    renderer: ``render_image``, or ``l2_loss`` and its ``.backward()``)."""
+    from .core.renderer import render_image
+    from .diff.fit import l2_loss
+    from .kernels.adjoint import l2_loss_kernel
     from .kernels.adjoint_fused import fit_value_and_grad, prepare_fit_inputs
     from .kernels.render import render_image_kernel
     from .utils.timing import scan_diff_median, step_runner
@@ -132,9 +156,17 @@ def time_steps(s: dict, *, forward_only: bool, mode: str, iters: int,
     def step(i):
         if forward_only:
             cam = dataclasses.replace(camera, eye=eye0 + eps[i])
-            return render_image_kernel(scene, cam, config, device=dev)
+            render = render_image if mode == "core" else render_image_kernel
+            with torch.no_grad():
+                return render(scene, cam, config, device=dev)
         with torch.no_grad():
             params.sph_center.copy_(center0).add_(eps[i])
+        if mode in ("core", "replay"):
+            params.zero_grad()
+            loss_fn = l2_loss if mode == "core" else l2_loss_kernel
+            loss = loss_fn(params, scene, camera, config, target, device=dev)
+            loss.backward()
+            return loss
         return fit_value_and_grad(params, scene, camera, config, target,
                                   prep=prep, mode=mode, device=dev)
 
@@ -161,12 +193,16 @@ def step_work_of(s: dict, *, forward_only: bool, mode: str, dev) -> dict:
 
 def last_step_work(k: dict, device=None) -> dict:
     """``step_work_of`` the bench's step for knobs ``k``: what its SOL
-    prices (``chip_smoke.py`` and P3 take the same blends)."""
+    prices (``chip_smoke.py`` and P3 take the same blends).  Only the
+    kernel paths have an op count; the core renderer and the replay raise
+    ``ValueError``."""
     from .kernels.render import resolve_device
+    mode = path_of(k)
+    if mode in ("core", "replay"):
+        raise ValueError(f"no op count covers the {mode} path's step")
     dev = resolve_device(device)
     return step_work_of(setup(_preset(k), k["forward_only"], dev),
-                        forward_only=k["forward_only"],
-                        mode=ADJOINT_MODES[k["adjoint"]], dev=dev)
+                        forward_only=k["forward_only"], mode=mode, dev=dev)
 
 
 def main(argv=None, device=None) -> dict:
@@ -183,18 +219,33 @@ def main(argv=None, device=None) -> dict:
     dev = resolve_device(device if device is not None else args.device)
     size, depth, iters, reps = k["size"], k["depth"], k["iters"], k["reps"]
     forward_only = k["forward_only"]
-    mode = ADJOINT_MODES[k["adjoint"]]
+    mode = path_of(k)
     s = setup(_preset(k), forward_only, dev)
+    if k["chunk"]:
+        s["config"] = dataclasses.replace(s["config"], chunk_size=k["chunk"])
     config = s["config"]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     timing = time_steps(s, forward_only=forward_only, mode=mode,
                         iters=iters, reps=reps, dev=dev)
     dt = max(timing["dt"], 1e-9)
     rays = size * size * config.samples
     pixels = size * size
 
-    sol, kern_line = {}, ""
+    # no op count covers the core renderer's or the replay's step
+    kernel_path = mode not in ("core", "replay")
+    sol = {"sol_fraction": None, "ops_per_pixel_fwd": None,
+           "ops_per_pixel_bwd": None, "mix_rate_ops_per_s": None}
+    kern_line, peak = "", None
     if dev.type == "cuda":
         from .kernels.probe import gpu_query
+        peak = torch.cuda.max_memory_allocated(dev)
+        device_name = torch.cuda.get_device_name(dev)
+        power_limit = gpu_query("power.limit", dev.index or 0)
+    else:
+        device_name, power_limit = "cpu", None
+    if dev.type == "cuda" and kernel_path:
         from .utils.roofline import sol_report
         work = last_step_work(k, dev)
         rep = sol_report(work["fwd"], work["bwd"], pixels,
@@ -212,10 +263,6 @@ def main(argv=None, device=None) -> dict:
                      f"by CUDA events = {kern_ms / (dt * 1e3):.4f} of the "
                      f"step; their sol_fraction "
                      f"{rep[f'sol_{key}_s'] * 1e3 / kern_ms:.4f}")
-        device_name = torch.cuda.get_device_name(dev)
-        power_limit = gpu_query("power.limit", dev.index or 0)
-    else:
-        device_name, power_limit = "cpu", None
 
     tag = "" if k["preset"] == "full_reflective" else f"_{k['preset']}"
     out = {
@@ -224,16 +271,25 @@ def main(argv=None, device=None) -> dict:
         "value": round(rays / dt, 1),
         "unit": "rays/s",
         # fraction of the card's speed of light for this step's operations
-        # at K9's rate; null off the card
-        "vs_baseline": sol.get("sol_fraction", None),
+        # at K9's rate; null off the card and where no op count covers
+        # the step
+        "vs_baseline": sol["sol_fraction"],
         "ray_accounting": "primary rays only (size*size*samples); shadow "
                           "and bounce rays are per-ray work",
         "device": device_name,
         "power_limit": power_limit,
-        "backend": "cuda" if dev.type == "cuda" else "plain",
-        "adjoint": k["adjoint"] if not forward_only else None,
+        # the kernels (their plain versions off the card) or the core
+        # renderer (the JAX bench's "xla")
+        "backend": ("core" if mode == "core" else
+                    "cuda" if dev.type == "cuda" else "plain"),
+        "adjoint": (None if forward_only else "autograd" if mode == "core"
+                    else k["adjoint"]),
         # the CUDA kernels' launch shape: a thread a pixel, 256 a block
-        "block": [1, 256],
+        "block": None if mode == "core" else [1, 256],
+        "chunk_size": config.chunk_size if mode == "core" else None,
+        # torch.cuda.max_memory_allocated over the timed runs (null off
+        # the card)
+        "peak_memory_bytes": peak,
         "step_time_ms": round(dt * 1e3, 4),
         "step_time_ms_reps": [round(d * 1e3, 4) for d in timing["dts"]],
         "timing": {"iters": iters, "reps": reps,
@@ -246,7 +302,8 @@ def main(argv=None, device=None) -> dict:
           f"step_time={dt * 1e3:.4f}ms (median of {reps} x {iters}-step "
           f"differences {[round(d * 1e3, 4) for d in timing['dts']]}, "
           f"warmup {timing['warmup_s']:.1f}s) "
-          f"mode={'fwd' if forward_only else 'fwd+bwd'}{kern_line}",
+          f"mode={'fwd' if forward_only else 'fwd+bwd'} path={mode} "
+          f"peak_memory={peak}{kern_line}",
           file=sys.stderr)
     return out
 

@@ -8,9 +8,11 @@ repainting the ray trace every frame (``onExecute``/``onRender``,
 ``:1631-1659``).  Here ``interactive`` replicates the menu and renders to
 an image file, ``render`` renders a named preset, ``fit`` runs the
 differentiable-fit workload (BASELINE config 4) and ``bench`` the headline
-benchmark (``bench.py``).  All run through the kernels: on the GPU, the
-CUDA kernels; with ``--cpu``, their plain PyTorch versions.  Without
-``--cpu`` and without a GPU they raise.
+benchmark (``bench.py``).  They run through the kernels (on the GPU, the
+CUDA kernels; with ``--cpu``, their plain PyTorch versions), but for
+``fit --views > 1``, the multi-view recipe, which trains by autograd
+through the core renderer (diff/multiview.py), as the JAX CLI does.
+Without ``--cpu`` and without a GPU they raise.
 
 Usage:
   python -m ray_tracer_fragment_shader_tpu_torch.cli render \
@@ -18,6 +20,8 @@ Usage:
   python -m ray_tracer_fragment_shader_tpu_torch.cli interactive --out scene.png
   python -m ray_tracer_fragment_shader_tpu_torch.cli fit --steps 100 \
       --out-dir fit_out
+  python -m ray_tracer_fragment_shader_tpu_torch.cli fit --views 3 \
+      --size 128 --steps 30
   python -m ray_tracer_fragment_shader_tpu_torch.cli bench --size 1024
 """
 from __future__ import annotations
@@ -171,18 +175,16 @@ def cmd_interactive(args):
 def cmd_fit(args):
     """Fits sphere centres and radii and the light position of
     ``fit_target`` to its own render, from a seeded perturbation (the JAX
-    CLI's recipe), through ``make_fit_step_kernel``.  Returns (params,
-    loss history).  Only ``--views 1``: the multi-view recipe waits for
-    diff/multiview.py (ROADMAP.md queue 1 item 8)."""
+    CLI's recipe).  One view steps ``make_fit_step_kernel``; ``--views >
+    1`` runs ``fit_multiview`` over ``orbit_views`` spanning ``--span``
+    degrees, with targets from the core renderer (JAX cli.py:192-213), and
+    prints its recovery report.  Returns (params, loss history)."""
     from .diff.fit import FitParams, fit
     from .io.image import write_image
     from .kernels.render import render_image_kernel
     from .ops.rays import Camera
     from .scene import presets
     from .utils.checkpoint import save_checkpoint
-    if args.views > 1:
-        raise NotImplementedError("--views > 1 needs diff/multiview.py "
-                                  "(ROADMAP.md queue 1 item 8)")
     device = _device(args)
     scene, camcfg, cfg = presets.fit_target(size=args.size or 128)
     camera = Camera.from_config(camcfg, cfg.width, cfg.height, device=device)
@@ -200,9 +202,31 @@ def cmd_fit(args):
         init.sph_radius *= torch.from_numpy(dr)
         init.light_pos += torch.from_numpy(dl)
 
-    params, history = fit(scene, camera, cfg, target, steps=args.steps,
-                          learning_rate=args.lr, params=init,
-                          log_every=max(args.steps // 10, 1), device=device)
+    report = None
+    if args.views > 1:
+        # the robust config-4 recipe: orbit views + multiscale + soft-
+        # silhouette annealing + restarts (diff/multiview.py)
+        from .diff.multiview import (fit_multiview, orbit_views,
+                                     recovery_report, render_views)
+        views = orbit_views(camcfg, args.views, span_deg=args.span)
+        targets = render_views(scene, views, cfg, device=device)
+        full = cfg.width
+        sizes = tuple(s for s in (full // 8, full // 4, full // 2)
+                      if s >= 32)
+        res = fit_multiview(scene, views, cfg, targets, init=init,
+                            sizes=sizes,
+                            steps_per_sigma=max(args.steps // 3, 10),
+                            geom_lr=args.lr, seed=args.seed,
+                            log_every=max(args.steps // 5, 1), device=device)
+        params, history = res.params, res.history
+        report = recovery_report(params, scene)
+        print("recovery error (world units; board square = 40):")
+        print(json.dumps(report, indent=2))
+    else:
+        params, history = fit(scene, camera, cfg, target, steps=args.steps,
+                              learning_rate=args.lr, params=init,
+                              log_every=max(args.steps // 10, 1),
+                              device=device)
     print(f"loss: {history[0]:.6g} -> {history[-1]:.6g}")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
@@ -216,6 +240,9 @@ def cmd_fit(args):
         save_checkpoint(os.path.join(args.out_dir, "params.npz"), params)
         with open(os.path.join(args.out_dir, "history.json"), "w") as f:
             json.dump(history, f)
+        if report is not None:
+            with open(os.path.join(args.out_dir, "recovery.json"), "w") as f:
+                json.dump(report, f, indent=2)
         print(f"wrote target/fitted/params/history to {args.out_dir}")
     return params, history
 
@@ -259,7 +286,10 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=0.5)
     p.add_argument("--views", type=int, default=1,
-                   help="only 1: the multi-view recipe is not ported yet")
+                   help=">1 enables the robust multi-view recipe "
+                        "(orbit cameras, multiscale, soft annealing)")
+    p.add_argument("--span", type=float, default=90.0,
+                   help="orbit azimuth span in degrees (--views > 1)")
     p.add_argument("--out-dir", default=None)
     p.set_defaults(fn=cmd_fit)
 

@@ -120,11 +120,11 @@ class RenderConfig:
     #: (Shape::intersection, MySdlApplication.cpp:747-758).  For well-formed
     #: scenes (all geometry inside its bounding sphere) this only rejects rays
     #: that would miss anyway.  The kernel path skips the prune (no image
-    #: effect); the field is kept for the core renderer still to be ported.
+    #: effect); the core renderer (core/renderer.py) applies it.
     prune: bool = True
     small_number: float = SMALL_NUMBER
     attenuation_factor: float = ATTENUATION_FACTOR
-    #: Pixels per chunk of the core renderer (still to be ported).
+    #: Pixels per chunk of the core renderer (core/renderer.py).
     chunk_size: int = 65536
     #: Computation dtype.  The kernels compute in float32; the reference
     #: uses float64 on CPU.

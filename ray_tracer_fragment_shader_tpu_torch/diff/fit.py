@@ -3,14 +3,21 @@
 
 L2 photometric loss plus Adam over sphere centres and radii, light
 positions and material colours, with gradients defined through fixed hit
-topology.  Each step runs the fit kernels (kernels/adjoint_fused.py: the
-packed forward and the adjoint for chain scenes, K6's tree form for
-fractional-transparency scenes) inside a
-``torch.autograd.Function``, so the parameters are ``nn.Parameter``s that
-``torch.optim`` updates.
+topology.  The parameters are ``nn.Parameter``s that ``torch.optim``
+updates; two routes compute their gradients:
 
-Core-autodiff fitting (``l2_loss``/``make_fit_step``) waits for the core
-renderer's port, and the sharded steps for ``parallel/`` (ROADMAP.md).
+* the kernel path (``make_fit_step_kernel``, ``fit``): each step runs the
+  fit kernels (kernels/adjoint_fused.py: the packed forward and the adjoint
+  for chain scenes, K6's tree form for fractional-transparency scenes)
+  inside a ``torch.autograd.Function``;
+* core autodiff (``l2_loss``, ``make_fit_step``): ``torch.autograd``
+  through the core renderer (core/renderer.py), as the JAX package's
+  ``jax.value_and_grad(l2_loss)``; no kernel runs.  It is the naive
+  baseline the kernel path is measured against.
+
+``fit`` keeps the kernel route where the JAX package's ``fit`` steps core
+autodiff (ROADMAP.md queue 3).  The sharded steps wait for ``parallel/``
+(ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -19,10 +26,11 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..config import RenderConfig
+from ..config import CameraConfig, RenderConfig
+from ..core.renderer import render_image
 from ..kernels.adjoint_fused import fit_value_and_grad, prepare_fit_inputs
-from ..kernels.render import resolve_device
 from ..ops.rays import Camera
+from ..ops.sampling import resolve_device
 from ..scene.flat import FlatScene
 
 
@@ -58,13 +66,54 @@ def default_fit_optimizer(params: FitParams, geom_lr: float = 0.5,
                           mat_lr: float = 0.01) -> torch.optim.Adam:
     """Adam with per-group learning rates matched to parameter scales:
     world-space geometry (~1e2 units) against material colours (~1e-1).
-    Three parameter groups stand in for optax's ``multi_transform``."""
+    Three parameter groups stand in for optax's ``multi_transform``.
+    torch's Adam rounds apart from optax's: it divides by
+    ``sqrt(v) / sqrt(1 - b2^t) + eps`` and scales the step by
+    ``lr / (1 - b1^t)``, where optax adds ``eps`` to ``sqrt(v_hat)`` of the
+    bias-corrected moments, so parameters part in the last bits per step."""
     return torch.optim.Adam([
         {"params": [params.sph_center, params.sph_radius], "lr": geom_lr},
         {"params": [params.light_pos], "lr": light_lr},
         {"params": [params.mat_diffuse, params.mat_specular,
                     params.mat_ambient], "lr": mat_lr},
     ])
+
+
+def l2_loss(params: FitParams, scene: FlatScene, camera,
+            config: RenderConfig, target, *, device=None) -> torch.Tensor:
+    """``mean((render_image(params.into_scene(scene)) - target)^2)`` through
+    the core renderer on ``device`` (default: the GPU); ``.backward()``
+    reaches the ``FitParams`` leaves by autograd (JAX diff/fit.py::l2_loss
+    under ``jax.value_and_grad``)."""
+    img = render_image(params.into_scene(scene), camera, config,
+                       device=device)
+    target = torch.as_tensor(target, dtype=img.dtype,
+                             device=img.device).reshape(img.shape)
+    return torch.mean((img - target) ** 2)
+
+
+def make_fit_step(scene: FlatScene, camera, config: RenderConfig, target,
+                  optimizer: torch.optim.Optimizer, *, device=None
+                  ) -> Callable[[FitParams], torch.Tensor]:
+    """An Adam step by core autodiff: ``step(params) -> loss`` (the loss
+    at the parameters before the update), on ``device`` (default: the GPU).
+    ``params`` must live there and be what ``optimizer`` updates (JAX
+    diff/fit.py::make_fit_step)."""
+    device = resolve_device(device)
+    if isinstance(camera, CameraConfig):
+        camera = Camera.from_config(camera, config.width, config.height,
+                                    device=device)
+    camera = camera.to(device)
+    target = torch.as_tensor(target, dtype=torch.float32, device=device)
+
+    def step(params: FitParams) -> torch.Tensor:
+        optimizer.zero_grad()
+        loss = l2_loss(params, scene, camera, config, target, device=device)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
 
 
 class _KernelLoss(torch.autograd.Function):

@@ -1,6 +1,6 @@
 """A/B of the plain replay's row gathers on the card, at config 3 (1024²,
 depth 3): autograd's own backward of ``table[idx]`` (an accumulating
-``index_put_``) against ``kernels/adjoint.py::_GatherRows`` (one-hot
+``index_put_``) against ``ops/gather.py::GatherRows`` (one-hot
 products over fixed chunks of pixels).  Each side times K8's plain version
 (``fit_grads_ref``) and ``render_image_diff``'s fwd+bwd
 (``l2_loss_kernel(...).backward()``), alternated index, one-hot, one-hot,

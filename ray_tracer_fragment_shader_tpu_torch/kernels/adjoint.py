@@ -12,9 +12,10 @@ the radiance is a small closed-form function of the scene parameters, which
 version of the hand-written adjoint kernels (csrc/adjoint_packed.cu,
 csrc/adjoint_fused.cu), with which it shares no code.
 
-Rows are gathered by id (``_gather_rows``), not by [P, N] one-hot
-products, so a 2048² frame of a 66-primitive scene fits in memory; only
-the gather's backward forms one-hot blocks, a chunk of pixels at a time.
+Rows are gathered by id (``ops/gather.py::gather_rows``), not by [P, N]
+one-hot products, so a 2048² frame of a 66-primitive scene fits in memory;
+only the gather's backward forms one-hot blocks, a chunk of pixels at a
+time.
 
 ``render_image_diff`` is a ``torch.autograd.Function`` whose forward is the
 residual forward kernel (kernels/render.py::render_forward_with_residuals,
@@ -31,48 +32,12 @@ from typing import Dict
 import torch
 
 from ..config import CameraConfig, RenderConfig
+from ..ops.gather import gather_rows as _gather_rows
 from ..ops.rays import Camera, primary_rays, screen_points
 from ..scene.flat import FlatScene, tri_derived
 from ..utils.jmath import safe_div, safe_sqrt
 from .render import (compact_scene, render_forward_with_residuals,
                      resolve_device)
-
-
-#: pixels whose cotangents one [chunk, rows] one-hot product sums at once
-#: in the gather's backward
-_GATHER_CHUNK = 1 << 18
-
-
-class _GatherRows(torch.autograd.Function):
-    """``table[idx]`` whose backward sums each row's cotangents as one-hot
-    products over fixed chunks of pixels: a fixed order, so deterministic,
-    and parallel.  The backward of ``table[idx]`` itself, an accumulating
-    ``index_put_``, adds the pixels that share a row one after another on
-    the GPU, and here most pixels share a few rows (the floor's, and row 0
-    for every unselected lane)."""
-
-    @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.rows = table.shape[0]
-        return table[idx]
-
-    @staticmethod
-    def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        flat = g.reshape(g.shape[0], -1)
-        out = flat.new_zeros((ctx.rows, flat.shape[1]))
-        for s in range(0, idx.shape[0], _GATHER_CHUNK):
-            i = idx[s:s + _GATHER_CHUNK]
-            hot = flat.new_zeros((i.shape[0], ctx.rows)).scatter_(
-                1, i[:, None], 1.0)
-            out.addmm_(hot.T, flat[s:s + _GATHER_CHUNK])
-        return out.reshape(ctx.rows, *g.shape[1:]), None
-
-
-def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` for an int64 id per pixel (``_GatherRows``)."""
-    return _GatherRows.apply(table, idx)
 
 
 def _take(table: torch.Tensor, idx: torch.Tensor,

@@ -374,8 +374,10 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make_fit_step_kernel(scene, camera, cfg, target,
                              default_fit_optimizer(params))
-    with pytest.raises(NotImplementedError, match="multiview"):
-        tcli.main(["fit", "--cpu", "--views", "2"])
+    # the multi-view fit (on the core renderer) needs --cpu without a GPU
+    # too; nothing falls back to the CPU
+    with pytest.raises(RuntimeError, match="--cpu"):
+        tcli.main(["fit", "--views", "2"])
 
 
 def test_stale_prep_raises():

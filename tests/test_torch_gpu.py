@@ -830,3 +830,48 @@ def test_tree_forward_image_and_planes(cuda, depth, bf16):
     ref_img, ref = K.render_residuals_ref(tables, v, eye, tree=True, **kw)
     assert_close_frac(ref_img, img, 0.01)
     assert all(torch.equal(res[k], ref[k]) for k in ref)
+
+
+# ---- the core renderer (plain PyTorch on the card, no kernel) ------------
+
+@pytest.mark.parametrize("name", ["full_reflective", "reference_demo",
+                                  "fractional_glass"])
+def test_core_render_on_the_card_matches_the_cpu(cuda, name):
+    """The core renderer (core/renderer.py) on the card against itself on
+    the CPU at 64^2, phase 2's budget; it launches no kernel."""
+    from ray_tracer_fragment_shader_tpu_torch.core.renderer import (
+        render_image)
+    scene, cam, cfg, budget = case(name)
+    K.reset_launch_counts()
+    img = render_image(scene, cam, cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert img.is_cuda and not any(K.LAUNCHES.values())
+    assert_close_frac(render_image(scene, cam, cfg, device="cpu"),
+                      img.cpu(), budget)
+
+
+def test_core_l2_loss_gradients_on_the_card_match_the_cpu(cuda):
+    """``diff/fit.py::l2_loss`` by autograd through the core renderer at
+    64^2 (full_reflective d3, sphere centres moved by 1.5): each gradient
+    table on the card within 1e-3 of max|CPU|, no kernel launched."""
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import (FitParams,
+                                                              l2_loss)
+    from ray_tracer_fragment_shader_tpu_torch.core.renderer import (
+        render_image)
+    scene, cam, cfg, _ = case("full_reflective")
+    target = render_image(scene, cam, cfg, device="cpu")
+    grads = {}
+    K.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        params = FitParams.from_scene(scene).to(dev)
+        with torch.no_grad():
+            params.sph_center += 1.5
+        l2_loss(params, scene, cam, cfg, target, device=dev).backward()
+        grads[str(dev)] = {f: getattr(params, f).grad.cpu()
+                           for f in FitParams.FIELDS}
+    assert not any(K.LAUNCHES.values())
+    for f, want in grads["cpu"].items():
+        got = grads[str(cuda)][f]
+        scale = max(want.abs().max().item(), 1e-12)
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 1e-3 * scale, f

@@ -317,7 +317,8 @@ def test_gather_rows_backward_sums_each_row_over_chunks(monkeypatch, shape):
     sums each row's cotangents over several chunks of pixels, as
     ``index_add_`` does (float32 reassociation apart)."""
     from ray_tracer_fragment_shader_tpu_torch.kernels import adjoint as A
-    monkeypatch.setattr(A, "_GATHER_CHUNK", 7)
+    from ray_tracer_fragment_shader_tpu_torch.ops import gather
+    monkeypatch.setattr(gather, "GATHER_CHUNK", 7)
     rng = np.random.RandomState(5)
     table = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     table.requires_grad_()
