@@ -198,6 +198,24 @@ Phases (each raises on failure; the script then exits non-zero):
    ``l2_loss`` fwd+bwd step at config 3 beside K2's frame and the K3+K4
    step, with the step's peak memory and the kernel path's factor over
    naive autodiff.
+19. the multi-rank paths (``parallel_phase``: parallel/ and the sharded
+   fit steps of diff/fit.py), at full width, ranks 0..2 of a world of 3
+   run one after another in this process (1024 rows: 342-row bands, 2
+   padding rows, a masked tail): the kernel band render at config 3
+   against ``render_image_kernel`` of the full frame (the differing
+   pixels printed, bit-identical expected; phase 2's budget) and each
+   band against its plain version; the band step at config 3 (K3+K4) and
+   on fractional_glass 1024^2 d3 (K6's tree), with the counters zeroed
+   just before and read just after, its ranks' buffers summed in rank
+   order against the unsharded ``fit_value_and_grad`` (loss within 1e-5
+   relative, each table within 1e-5 of max|table|) and each band's K4 or
+   K6 against its plain version (phase 4's tolerances); then a one-rank
+   NCCL group through ``initialize_multihost``: 5 Adam steps of
+   ``make_sharded_fit_step_kernel`` at config 3 from centres + 1.5 (K3
+   and K4 counted, the loss falls, the first loss equal to
+   ``make_fit_step_kernel``'s bit for bit) and one ``scaling_sweep`` row
+   at world 1 (step ms and rays/s beside the card's name and power
+   limit).
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.  The bf16 rows
@@ -749,7 +767,7 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
     loss_f32, g_f32 = AF.fit_value_and_grad(
         params, x["scene"], x["camera"],
         dataclasses.replace(x["cfg"], bf16_shading=False), x["target"],
-        device=dev)
+        mode="twophase", device=dev)
     rel = {f: rel_err(ref[f], g_f32[f]) for f in FIELDS}
     print(f"path bf16 config 3: loss {float(ref_loss):.7g} vs the f32 "
           f"path's {float(loss_f32):.7g}; gradients' max|bf16 - f32| / "
@@ -1203,7 +1221,8 @@ def chain_phase(dev, card, launches, errs, fracs, k9):
                 scene, camera, cfg, device=dev), "render_chain"),
             ("fit step config 5 2048^2 d3 two-phase", lambda:
                 AF.fit_value_and_grad(params, scene, camera, cfg, target[0],
-                                      device=dev), "render_packed")):
+                                      mode="twophase", device=dev),
+             "render_packed")):
         K.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
@@ -1343,6 +1362,227 @@ def k6_phase(dev, card, launches, errs):
     del steps, params, target
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+#: phase 19's shift of the band step's sphere centres (scene units) on top
+#: of +1.5 on all: sphere 0 up into the top band, sphere 1 towards the
+#: camera into the bottom band, so every band, and the rows beside the
+#: masked padding, carries live pixels
+REACH_BANDS = ((0, (0.0, 150.0, 0.0)), (1, (0.0, 0.0, 250.0)))
+
+
+def parallel_phase(dev, card, launches, errs):
+    """Phase 19: the multi-rank paths (parallel/, diff/fit.py's sharded
+    steps) at full width.  Ranks 0..2 of a world of 3 run one after another
+    in this process (each rank's share issues no collective): the row
+    bands of the kernel render at config 3 against the full frame, and the
+    band step at config 3 (K3+K4) and on fractional_glass (K6's tree),
+    the ranks' buffers summed in rank order against the unsharded
+    ``fit_value_and_grad`` and each band against its plain version.  Then a
+    one-rank NCCL group through ``initialize_multihost``: 5 Adam steps of
+    ``make_sharded_fit_step_kernel`` and one ``scaling_sweep`` row.  Adds
+    to ``launches`` and ``errs`` of K2, K3, K4 and K6."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import (
+        FitParams, band_fit_inputs, band_loss_grads, make_fit_step_kernel,
+        make_sharded_fit_step_kernel)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import (Camera,
+                                                               primary_rays)
+    from ray_tracer_fragment_shader_tpu_torch.parallel import shard as S
+    from ray_tracer_fragment_shader_tpu_torch.parallel.mesh import make_mesh
+    from ray_tracer_fragment_shader_tpu_torch.parallel.multihost import (
+        initialize_multihost, scaling_sweep)
+    from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    t19 = time.perf_counter()
+    world = 3
+    fr3 = presets.full_reflective(size=1024, depth=3)
+    fg3 = presets.fractional_glass(size=1024, depth=3)
+    size = fr3[2].height
+    h_pad, hs = S.band_split(size, world)
+    print(f"phase 19: a world of {world} at {size} rows: {hs}-row bands, "
+          f"{h_pad - size} padding rows")
+
+    def counted(fn):
+        K.reset_launch_counts()
+        out = fn()
+        _sync(dev)
+        return out, {k: c for k, c in K.LAUNCHES.items() if c}
+
+    def camera_of(preset):
+        scene, cam, cfg = preset
+        return Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+
+    # -- 1. the kernel band render at config 3 against the full frame
+    scene, _, cfg = fr3
+    cam = camera_of(fr3)
+    bands, counts = counted(lambda: [
+        S.render_band(scene, cam, cfg, r, world, device=dev)
+        for r in range(world)])
+    print(f"path band render config 3 {size}^2 d3, {world} ranks: launches "
+          f"{counts}")
+    check(counts == {"render_chain": world},
+          f"the band render launched {counts}")
+    launches["render_chain"] += counts["render_chain"]
+    full = K.render_image_kernel(scene, cam, cfg, device=dev)
+    img = torch.cat(bands)[:size]
+    ndiff = int((img != full).any(-1).sum())
+    c = compare(img, full, 0.01)
+    print(f"check band render config 3: {ndiff} pixels differ from the full "
+          f"frame's render (bit-identical expected); {c['frac']:.6f} over "
+          f"1e-3, max abs {c['max_abs_err']:.3g} [{card}]")
+    check(c["ok"], "the band render disagrees with the full frame")
+    for r, band in enumerate(bands):   # each band against its plain version
+        tables = K.pack_scene(scene.to(dev))
+        _, v = primary_rays(cam, S.band_points(cam, cfg.width, hs, r))
+        plain = K.render_chain_ref(tables, v.contiguous(), cam.eye.tolist(),
+                                   **K.render_kwargs(scene, cfg))
+        c = compare(band.reshape(-1, 3), plain, 0.01)
+        errs["render_chain"].append(c["max_abs_err"])
+        print(f"check band {r} render_chain against its plain version: "
+              f"{c['frac']:.6f} over 1e-3")
+        check(c["ok"], f"band {r}'s render disagrees with its plain version")
+    del bands, full, img
+
+    # -- 2. the band step: K3+K4 at config 3, K6's tree on fractional_glass
+    for label, preset, twophase, want in (
+            (f"config 3 {size}^2 d3", fr3, True,
+             {"render_packed": world, "adjoint_packed": world}),
+            (f"fractional_glass {size}^2 d3", fg3, False,
+             {"fused_adjoint": world})):
+        scene, _, cfg = preset
+        cam = camera_of(preset)
+        target = K.render_image_kernel(scene, cam, cfg, device=dev)
+        params = FitParams.from_scene(scene).to(dev)
+        with torch.no_grad():
+            params.sph_center += 1.5
+            for i, shift in REACH_BANDS:
+                params.sph_center[i] += torch.tensor(shift, device=dev)
+        loss_u, grads_u = AF.fit_value_and_grad(
+            params, scene, cam, cfg, target,
+            mode="twophase" if twophase else "fused", device=dev)
+        inputs = [band_fit_inputs(cam, cfg, target, r, world, device=dev)
+                  for r in range(world)]
+        bufs, counts = counted(lambda: [
+            band_loss_grads(params, scene, cam, b, twophase=twophase,
+                            device=dev) for b in inputs])
+        print(f"path band step {label}, {world} ranks: launches {counts}")
+        check(counts == want, f"the band step launched {counts}")
+        for k, n in counts.items():
+            launches[k] += n
+        band_sq = [float(b[0]) for b in bufs]
+        print(f"band step {label}: each band's squared-error sum "
+              + " ".join(f"{x:.7g}" for x in band_sq))
+        check(min(band_sq) > 0, f"a band of {label} has no live pixel")
+        total = bufs[0].clone()
+        for b in bufs[1:]:
+            total += b
+        sq, grads = S.unflatten_grads(total, {f: getattr(params, f)
+                                              for f in FIELDS})
+        loss = sq / float(size * size * 3)
+        loss_rel = abs(float(loss) - float(loss_u)) / float(loss_u)
+        tab = {f: rel_err(grads[f], grads_u[f].reshape(grads[f].shape))
+               for f in FIELDS}
+        print(f"check band step {label}: rank sums against the unsharded "
+              f"fit_value_and_grad: loss {float(loss):.8g} vs "
+              f"{float(loss_u):.8g} (rel {loss_rel:.2e}); max|diff|/max|"
+              f"table| " + " ".join(f"{f} {e:.2e}" for f, e in tab.items())
+              + f" (tolerance 1e-5) [{card}]")
+        check(loss_rel <= 1e-5 and max(tab.values()) <= 1e-5,
+              f"the band step's rank sums disagree with the unsharded step "
+              f"on {label}")
+        for r, b in enumerate(inputs):   # each band against its plain version
+            v, eye, prep = b["prep"]["v"], b["prep"]["eye"], b["prep"]
+            if twophase:
+                _, tables, kw, akw = AF.kernel_inputs(
+                    params.into_scene(scene), b["config"], b["denom"] / 3,
+                    device=dev)
+                img, pk = K.render_packed(tables, v, eye, pack=akw["pack"],
+                                          **kw)
+                args = (tables, v, eye, img, prep["target"], prep["mask"], pk)
+                errs["adjoint_packed"].append(hold_grads(
+                    "adjoint_packed", f"band {r} of {label}",
+                    AF.adjoint_packed(*args, **akw),
+                    AF.adjoint_packed_ref(*args, **akw)))
+            else:
+                _, tables, kw = AF.scene_tables(params.into_scene(scene),
+                                                b["config"], dev)
+                args = (tables, v, eye, prep["target"], prep["mask"])
+                kw6 = dict(tree=True, g_scale=2.0 / b["denom"], **kw)
+                errs["fused_adjoint"].append(hold_grads(
+                    "fused_adjoint", f"band {r} of {label}",
+                    AF.fused_adjoint(*args, **kw6),
+                    AF.fused_adjoint_ref(*args, **kw6)))
+        del inputs, bufs, target, params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # -- 3. a one-rank group through initialize_multihost: 5 Adam steps of
+    # the band step at config 3, its first loss equal to make_fit_step_
+    # kernel's bit for bit, and one scaling_sweep row
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_multihost(f"localhost:{port}", num_processes=1, process_id=0)
+    mesh = make_mesh()
+    print(f"one-rank group: backend {dist.get_backend()}, rank {mesh.rank} "
+          f"of {mesh.size}, device {mesh.device}")
+    check(mesh.size == 1 and mesh.device.type == dev.type,
+          f"the one-rank group's mesh is {mesh}")
+    scene, _, cfg = fr3
+    cam = camera_of(fr3)
+    target = K.render_image_kernel(scene, cam, cfg, device=dev)
+
+    def moved():
+        p = FitParams.from_scene(scene).to(dev)
+        with torch.no_grad():
+            p.sph_center += 1.5
+        return p
+    p_ref = moved()
+    # phase 5's optimizer: Adam at 0.3 on the centres
+    loss_ref = make_fit_step_kernel(
+        scene, cam, cfg, target, torch.optim.Adam([p_ref.sph_center], lr=0.3),
+        device=dev)(p_ref)
+    params = moved()
+    step = make_sharded_fit_step_kernel(
+        scene, cam, cfg, target, torch.optim.Adam([params.sph_center],
+                                                  lr=0.3), mesh)
+    losses, counts = counted(lambda: [step(params) for _ in range(5)])
+    losses = [float(x) for x in losses]
+    print(f"path one-rank {dist.get_backend()} make_sharded_fit_step_kernel "
+          f"config 3, 5 Adam steps: launches {counts}; losses "
+          + " ".join(f"{x:.7g}" for x in losses))
+    check(counts == {"render_packed": 5, "adjoint_packed": 5},
+          f"the one-rank step launched {counts}")
+    for k, n in counts.items():
+        launches[k] += n
+    same = losses[0] == float(loss_ref)
+    print(f"check one-rank step: first loss {losses[0]!r} equals "
+          f"make_fit_step_kernel's {float(loss_ref)!r} bit for bit: {same}")
+    check(same, "the one-rank sharded step's first loss differs from "
+          "make_fit_step_kernel's")
+    check(losses[-1] < losses[0], "the one-rank sharded step's loss did not "
+          "fall")
+    row = scaling_sweep(scene, cam, cfg, mesh_sizes=[1], iters=4, reps=3)[0]
+    print(f"time scaling_sweep world 1 config 3 {size}^2 d3: step "
+          f"{row['step_time_s'] * 1e3:.4f} ms ({row['timing_method']}, "
+          f"spread {row['timing_spread']}) = {row['rays_per_s']:.1f} rays/s, "
+          f"loss {row['loss']:.7g} [{card}]")
+    dist.destroy_process_group()
+    del target, params, p_ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s")
 
 
 def host_ms(fn, reps: int) -> list:
@@ -1589,7 +1829,7 @@ def core_phase(dev, card):
                          ("kernel fwd+bwd step (K3+K4)",
                           lambda: AF.fit_value_and_grad(
                               params, scene, camera, cfg, target, prep=prep,
-                              device=dev)))}
+                              mode="twophase", device=dev)))}
     for what, sides in pairs.items():
         med = []
         for label, fn in sides:
@@ -2034,7 +2274,7 @@ def main():
         with torch.no_grad():
             params.sph_center += 1.5
         fit_runs[label] = (preset, *AF.fit_value_and_grad(
-            params, scene, camera, cfg, target, device=dev))
+            params, scene, camera, cfg, target, mode="twophase", device=dev))
         if label.startswith("config 3"):
             step = make_fit_step_kernel(
                 scene, camera, cfg, target,
@@ -2327,7 +2567,7 @@ def main():
         def step():
             return AF.fit_value_and_grad(params, x["scene"], x["camera"],
                                          x["cfg"], x["target"], prep=prep,
-                                         device=dev)
+                                         mode="twophase", device=dev)
         step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2569,7 +2809,7 @@ def main():
     check(all(map(math.isfinite, steps)), "split fit: loss not finite")
     start = x["params"].to(dev)
     l4, g4 = AF.fit_value_and_grad(start, x["scene"], x["camera"], x["cfg"],
-                                   x["target"], device=dev)
+                                   x["target"], mode="twophase", device=dev)
     hold_fields("fit_grads", "config 3 1024^2 d3 (path, first step)",
                 first["loss"], first["grads"], l4, g4, against="two-phase")
     print("path split fit: first step's gradients equal the two-phase "
@@ -2618,7 +2858,8 @@ def main():
                                       device=dev),
         want=["render_chain_residuals", "fit_grads"], into=split_launches)
     l5t, g5t = AF.fit_value_and_grad(params, x["scene"], x["camera"],
-                                     x["cfg"], x["target"], device=dev)
+                                     x["cfg"], x["target"], mode="twophase",
+                                     device=dev)
     hold_fields("fit_grads", "config 5 2048^2 d3 (path)", l5, g5, l5t, g5t,
                 against="two-phase")
     print("path split step config 5: gradients equal the two-phase path's "
@@ -2726,7 +2967,7 @@ def main():
             mode="split", device=dev), 10)
         t_two = step_ms(lambda: AF.fit_value_and_grad(
             params, x["scene"], x["camera"], x["cfg"], x["target"],
-            device=dev), 10)
+            mode="twophase", device=dev), 10)
         print(f"time split step {label}: fit_value_and_grad(mode=\"split\") "
               f"{t_split:.4f} ms on the host clock = {P / t_split / 1e3:.1f} "
               f"M rays/s; two-phase (no prep) {t_two:.4f} ms; K8 {t8:.4f} ms "
@@ -2751,6 +2992,9 @@ def main():
 
     # ---- 18. the core renderer and the fits on its autograd ---------------
     core_phase(dev, card)
+
+    # ---- 19. the multi-rank paths: band render, band steps, one-rank NCCL -
+    parallel_phase(dev, card, launches, errs)
 
     kernels = []
     for k in list(KERNEL_SOURCES) + list(BF16_ROWS):

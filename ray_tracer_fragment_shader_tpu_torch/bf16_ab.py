@@ -86,7 +86,8 @@ def main(argv=None) -> int:
             fwd=lambda k: K.render_image_kernel(scene, camera, cfg,
                                                 device=dev),
             fwd_bwd=lambda k: AF.fit_value_and_grad(
-                params, scene, camera, cfg, target, prep=prep, device=dev),
+                params, scene, camera, cfg, target, prep=prep, mode="twophase",
+                device=dev),
             k2=lambda: K.render_chain(t, v, eye, **kw), k3k4=k3k4)
 
     out = dict(card=card, device=torch.cuda.get_device_name(0),

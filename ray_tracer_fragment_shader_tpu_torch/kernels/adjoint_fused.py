@@ -48,6 +48,7 @@ leaves: sphere centres and radii, light positions, material colours.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -504,30 +505,44 @@ def fit_grads(tables, v, eye, g, res: Dict[str, torch.Tensor], *, nl: int,
 # ------------------------------------------------------------- host side
 
 def prepare_fit_inputs(camera: Camera, config: RenderConfig, target,
-                       device=None) -> Dict[str, Any]:
+                       mask=None, pts=None, device=None) -> Dict[str, Any]:
     """The step-invariant per-pixel inputs of the fit kernels, on
     ``device`` (default: the GPU): primary-ray directions ``v`` [P,3], the
-    ``target`` RGB [P,3] and the pixel ``mask`` [P] (all 1), flat over
-    P = H*W with no padding.  Build once and pass as ``prep=``; it
-    remembers the target it was built from (``_check_prep``)."""
+    ``target`` RGB [P,3] and the pixel ``mask`` [P], flat over P = H*W
+    with no padding.  ``mask``: an [H,W] weight plane (default all 1; a
+    row band passes 0 on its padding rows), applied once to the loss and
+    the cotangent.  ``pts``: screen points [H*W,3] in place of the
+    camera's own (a row band's).  Build once and pass as ``prep=``; it
+    remembers the target, mask and points it was built from
+    (``_check_prep``)."""
     device = resolve_device(device)
     w, h = config.width, config.height
     camera = camera.to(device)
-    _, v = primary_rays(camera, screen_points(camera, w, h))
+    pts_v = (screen_points(camera, w, h) if pts is None
+             else torch.as_tensor(pts, dtype=torch.float32, device=device))
+    if tuple(pts_v.shape) != (h * w, 3):
+        raise ValueError(f"pts must be [{h * w}, 3] for a {h}x{w} config, "
+                         f"got {tuple(pts_v.shape)}")
+    _, v = primary_rays(camera, pts_v)
     tgt = torch.as_tensor(target, dtype=torch.float32, device=device)
+    m = (torch.ones(h * w, dtype=torch.float32, device=device)
+         if mask is None else torch.as_tensor(
+             mask, dtype=torch.float32, device=device).reshape(h * w))
     return dict(v=v.contiguous(), target=tgt.reshape(-1, 3).contiguous(),
-                mask=torch.ones(h * w, dtype=torch.float32, device=device),
-                eye=camera.eye.tolist(), src=target)
+                mask=m.contiguous(), eye=camera.eye.tolist(),
+                src=dict(target=target, mask=mask, pts=pts))
 
 
-def _check_prep(prep, target) -> None:
+def _check_prep(prep, target, mask=None, pts=None) -> None:
     """Raises if ``prep`` was built from a different target object than this
-    call passes (identity check: rebuild the prep when the target
-    changes)."""
-    if prep["src"] is not target:
-        raise ValueError("prep= was built from a different `target` object "
-                         "than this call passes; prepare_fit_inputs() again "
-                         "for the new target")
+    call passes, or from another mask or points object than a given one
+    (identity checks: rebuild the prep when they change)."""
+    for name, got in (("target", target), ("mask", mask), ("pts", pts)):
+        if (got is not None or name == "target") \
+                and prep["src"][name] is not got:
+            raise ValueError(f"prep= was built from a different `{name}` "
+                             f"object than this call passes; "
+                             f"prepare_fit_inputs() again for the new {name}")
 
 
 def scene_tables(scene: FlatScene, config: RenderConfig, device=None):
@@ -540,7 +555,7 @@ def scene_tables(scene: FlatScene, config: RenderConfig, device=None):
     return scene, pack_scene(scene), render_kwargs(scene, config)
 
 
-def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
+def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels,
                   device=None):
     """The fit kernels' per-step inputs from a scene:
     ``(scene_c, tables, kw, akw)``, the compacted and detached scene on
@@ -548,7 +563,8 @@ def kernel_inputs(scene: FlatScene, config: RenderConfig, num_pixels: int,
     keywords (``render_packed(tables, v, eye, pack=akw["pack"], **kw)``)
     and the adjoint's keywords (``adjoint_packed(..., **akw)``), whose
     cotangent scale is that of ``mean((img - target)^2)`` over
-    ``num_pixels`` RGB pixels.  Raises where the scene overflows the pack
+    ``num_pixels`` RGB pixels, the caller's: a row band's call passes the
+    whole image's.  Raises where the scene overflows the pack
     (``pack_widths``), which only K3/K4 take: K6 and K7 take
     ``scene_tables``'s keywords."""
     scene, tables, kw = scene_tables(scene, config, device)
@@ -570,31 +586,46 @@ def _grads_c(scene_c: FlatScene, dsph, dmat, dlight
                 mat_specular=dmat[:m, 6:9], light_pos=dlight[:nl, 0:3])
 
 
-def _prep_for(camera, config, target, prep, device):
-    """``prep``, checked against ``target``, or a new one."""
+def _prep_for(camera, config, target, prep, device, mask=None, pts=None):
+    """``prep``, checked against ``target``, ``mask`` and ``pts``, or a new
+    one from them."""
     if prep is None:
-        return prepare_fit_inputs(camera, config, target, device=device)
-    _check_prep(prep, target)
+        return prepare_fit_inputs(camera, config, target, mask=mask, pts=pts,
+                                  device=device)
+    _check_prep(prep, target, mask, pts)
     return prep
 
 
+def _denom(config: RenderConfig, denom: Optional[float]) -> float:
+    """The loss normaliser: ``denom``, or H*W*3 of the call's config."""
+    return float(config.height * config.width * 3) if denom is None \
+        else float(denom)
+
+
 def twophase_loss_grads_kernel(scene: FlatScene, camera: Camera,
-                               config: RenderConfig, target,
+                               config: RenderConfig, target, mask=None,
+                               denom: Optional[float] = None, pts=None,
                                prep: Optional[Dict[str, Any]] = None,
                                device=None):
     """The two-phase fwd+bwd of a chain-exact scene: the packed forward,
     then the adjoint with its cotangent prologue.  Returns ``(sq_err_sum,
-    grads_c)``: the squared-error sum and the compacted scene's gradient
-    tables (``_grads_c``) of ``sq_err_sum / (H*W*3)``, as
-    adjoint_fused.py::twophase_loss_grads_pallas."""
+    grads_c)``: the masked squared-error sum ``sum(mask*(img-target)^2)``
+    and the compacted scene's gradient tables (``_grads_c``) of
+    ``sq_err_sum / denom``, as adjoint_fused.py::twophase_loss_grads_pallas.
+    ``mask`` [H,W] weighs the pixels (a row band's padding rows 0);
+    ``denom`` (default H*W*3 of ``config``) is the loss normaliser, so the
+    cotangent is ``(2/denom)*mask*(img-target)``: a row band passes the
+    whole image's, and the bands' tables sum to the image's.  ``pts``:
+    the band's screen points [H*W,3] in place of the camera's."""
     if not scene.chain_exact:
         raise ValueError("the packed two-phase backward replays the bounce "
                          "chain; fractional-transparency scenes take the "
                          "fused tree kernel (fused_loss_grads_kernel)")
     device = resolve_device(device)
-    prep = _prep_for(camera, config, target, prep, device)
+    prep = _prep_for(camera, config, target, prep, device, mask, pts)
     v, eye = prep["v"], prep["eye"]
-    scene, tables, kw, akw = kernel_inputs(scene, config, v.shape[0],
+    scene, tables, kw, akw = kernel_inputs(scene, config,
+                                           _denom(config, denom) / 3,
                                            device=device)
     img, pk = render_packed(tables, v, eye, pack=akw["pack"], **kw)
     loss, dsph, dmat, dlight = adjoint_packed(
@@ -603,21 +634,23 @@ def twophase_loss_grads_kernel(scene: FlatScene, camera: Camera,
 
 
 def fused_loss_grads_kernel(scene: FlatScene, camera: Camera,
-                            config: RenderConfig, target,
+                            config: RenderConfig, target, mask=None,
+                            denom: Optional[float] = None, pts=None,
                             prep: Optional[Dict[str, Any]] = None,
                             device=None):
-    """The fused fwd+loss+bwd (K6): returns ``(sq_err_sum,
-    grads_c)`` as ``twophase_loss_grads_kernel``.  Fractional-transparency
-    scenes take the tree form (forward and adjoint over the preorder nodes
-    of the full bounce tree), as adjoint_fused.py::fused_loss_grads_pallas
-    does."""
+    """The fused fwd+loss+bwd (K6): returns ``(sq_err_sum, grads_c)`` as
+    ``twophase_loss_grads_kernel``, with the same ``mask``, ``denom`` and
+    ``pts``.  Fractional-transparency scenes take the tree form (forward
+    and adjoint over the preorder nodes of the full bounce tree), as
+    adjoint_fused.py::fused_loss_grads_pallas does."""
     device = resolve_device(device)
-    prep = _prep_for(camera, config, target, prep, device)
+    prep = _prep_for(camera, config, target, prep, device, mask, pts)
     v, eye = prep["v"], prep["eye"]
     scene, tables, kw = scene_tables(scene, config, device)
     loss, dsph, dmat, dlight = fused_adjoint(
         tables, v, eye, prep["target"], prep["mask"],
-        tree=not scene.chain_exact, g_scale=2.0 / (v.shape[0] * 3), **kw)
+        tree=not scene.chain_exact, g_scale=2.0 / _denom(config, denom),
+        **kw)
     return loss, _grads_c(scene, dsph, dmat, dlight)
 
 
@@ -789,10 +822,24 @@ def _sampled_value_and_grad(params, scene_full: FlatScene, camera: Camera,
                                           _grads_c(fw["scene_c"], *sums))
 
 
+def fit_mode(mode: Optional[str] = None, single_kernel: bool = True) -> str:
+    """The fit kernels' shape for single-sample chain scenes: ``mode``, or
+    with ``None`` the environment's ``RTFS_FIT_MODE`` (default
+    "twophase"); ``single_kernel=False`` means "split"
+    (adjoint_fused.py:1651-1653).  Raises on any other value."""
+    if mode is None:
+        mode = ("split" if not single_kernel
+                else os.environ.get("RTFS_FIT_MODE", "twophase"))
+    if mode not in ("twophase", "fused", "split"):
+        raise ValueError(f"unknown fit mode {mode!r}")
+    return mode
+
+
 def fit_value_and_grad(params, scene: FlatScene, camera: Camera,
                        config: RenderConfig, target, *,
+                       single_kernel: bool = True,
                        prep: Optional[Dict[str, Any]] = None,
-                       mode: str = "twophase",
+                       mode: Optional[str] = None,
                        jitter: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None,
                        device=None):
@@ -807,19 +854,22 @@ def fit_value_and_grad(params, scene: FlatScene, camera: Camera,
     live list and the adjoint behind one entry);
     ``mode="split"`` the residual forward (the chain kernel's unpacked
     planes), the L2 cotangent in PyTorch and K8, with no pack and so no
-    2^24 limit on primitives, materials and lights.  Fractional-transparency
-    scenes always take K6's tree form.
+    2^24 limit on primitives, materials and lights.  ``mode=None`` (the
+    default) reads the environment's ``RTFS_FIT_MODE`` (default
+    "twophase"), and ``single_kernel=False`` means "split", as in the JAX
+    package (``fit_mode``).  Fractional-transparency scenes always take
+    K6's tree form.
 
     Supersampled configs (``samples > 1`` or ``force_jitter``), adaptive or
     not: per sample one forward render (the chain or tree kernel) and one
-    K7 (``_sampled_value_and_grad``).  Sample k's screen points move by
-    ``jitter[k]`` when the [S, H*W, 3] ``jitter`` is given (e.g. the JAX
-    package's draws), else by draws from ``generator`` (default: seeded
-    with ``config.seed``), as in ``render_image_kernel``.  ``prep=``
-    (``prepare_fit_inputs``) serves the single-sample paths only; with a
-    jittered config it raises ``ValueError``, as in the JAX package."""
-    if mode not in ("twophase", "fused", "split"):
-        raise ValueError(f"unknown fit mode {mode!r}")
+    K7 (``_sampled_value_and_grad``), whatever the mode.  Sample k's screen
+    points move by ``jitter[k]`` when the [S, H*W, 3] ``jitter`` is given
+    (e.g. the JAX package's draws), else by draws from ``generator``
+    (default: seeded with ``config.seed``), as in ``render_image_kernel``.
+    ``prep=`` (``prepare_fit_inputs``) serves the twophase and fused paths
+    only: with a jittered config, or in split mode on a chain scene, it
+    raises ``ValueError``, as in the JAX package."""
+    mode = fit_mode(mode, single_kernel)
     scene_full = params.into_scene(scene)
     use_jitter = config.samples > 1 or config.force_jitter
     if prep is not None and (use_jitter
@@ -832,7 +882,7 @@ def fit_value_and_grad(params, scene: FlatScene, camera: Camera,
                                        generator=generator, device=device)
     if not scene_full.chain_exact:
         mode = "fused"  # tree scenes: the bounce tree's fwd+adjoint, K6
-    denom = float(config.height * config.width * 3)
+    denom = _denom(config, None)
     if mode == "split":
         # adjoint_fused.py:1678-1687: the cotangent is XLA's there, outside
         # any kernel; here PyTorch's, in the same order as K4's prologue
@@ -846,6 +896,6 @@ def fit_value_and_grad(params, scene: FlatScene, camera: Camera,
                 grads_to_fitparams(params, scene_full, grads_c))
     impl = (twophase_loss_grads_kernel if mode == "twophase"
             else fused_loss_grads_kernel)
-    sq_sum, grads_c = impl(scene_full, camera, config, target, prep=prep,
-                           device=device)
+    sq_sum, grads_c = impl(scene_full, camera, config, target, denom=denom,
+                           prep=prep, device=device)
     return sq_sum / denom, grads_to_fitparams(params, scene_full, grads_c)

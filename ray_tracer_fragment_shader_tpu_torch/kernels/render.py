@@ -908,7 +908,7 @@ def render_forward_with_residuals(scene: FlatScene, camera,
 def render_image_kernel(scene: FlatScene, camera, config: RenderConfig, *,
                         generator: Optional[torch.Generator] = None,
                         jitter: Optional[torch.Tensor] = None,
-                        device=None) -> torch.Tensor:
+                        pts=None, device=None) -> torch.Tensor:
     """Full-frame render -> [H,W,3] f32 (row j=0 the bottom scanline), on
     ``device``: the GPU by default (raising where there is none);
     ``device="cpu"`` runs the kernels' plain versions.  The counterpart of
@@ -923,7 +923,10 @@ def render_image_kernel(scene: FlatScene, camera, config: RenderConfig, *,
     emulates the reference's adaptive supersampler
     (MySdlApplication.cpp:1294-1311) exactly as the JAX package does.
     ``config.bf16_shading`` runs the kernels' bf16 instantiations (the
-    any-hit shadow sweep and the Phong blend in bfloat16, ``_PlainOps``)."""
+    any-hit shadow sweep and the Phong blend in bfloat16, ``_PlainOps``).
+    ``pts``: screen points [H*W,3] in place of the camera's own; a row
+    band (parallel/shard.py) passes its rows' points with a config whose
+    ``height`` is the band's, and its samples jitter those points."""
     device = resolve_device(device)
     scene = scene.to(device)
     w, h = config.width, config.height
@@ -936,7 +939,13 @@ def render_image_kernel(scene: FlatScene, camera, config: RenderConfig, *,
     tables = pack_scene(scene)
     eye = camera.eye.tolist()
     kw = render_kwargs(scene, config)
-    pts = screen_points(camera, w, h)
+    if pts is None:
+        pts = screen_points(camera, w, h)
+    else:
+        pts = torch.as_tensor(pts, dtype=torch.float32, device=device)
+        if tuple(pts.shape) != (h * w, 3):
+            raise ValueError(f"pts must be [{h * w}, 3] for a {h}x{w} "
+                             f"config, got {tuple(pts.shape)}")
     P = pts.shape[0]
 
     def one_sample(pts_s):

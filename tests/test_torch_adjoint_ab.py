@@ -10,6 +10,7 @@ import os
 import pytest
 import torch
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu_torch import adjoint_ab, forward_ab
 from ray_tracer_fragment_shader_tpu_torch.kernels import adjoint_fused as AF
 from ray_tracer_fragment_shader_tpu_torch.kernels import render as K

@@ -9,6 +9,7 @@ import json
 
 import pytest
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu_torch import bench, cli
 from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
 

@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu_torch import grad_bar
 from ray_tracer_fragment_shader_tpu_torch.diff.fit import (
     FitParams, make_fit_step_kernel)

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu import cli as jcli
 from ray_tracer_fragment_shader_tpu.io.image import read_ppm
 from ray_tracer_fragment_shader_tpu_torch import cli as tcli

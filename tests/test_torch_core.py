@@ -37,6 +37,7 @@ from torch_core_ref import (FIELDS, HIT_FIELDS, IMAGE_CASES,
                             INTERSECT_SCENES, RAYS, SIZE, checker_rays,
                             exclusions, fit_problem, image_case, jax_jitter,
                             jax_preset, random_rays, tie_case)
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu_torch.config import RenderConfig
 from ray_tracer_fragment_shader_tpu_torch.core import renderer as TR
 from ray_tracer_fragment_shader_tpu_torch.core.topology import same_topology

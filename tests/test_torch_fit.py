@@ -27,6 +27,7 @@ import optax
 import pytest
 import torch
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu.core.renderer import render_image
 from ray_tracer_fragment_shader_tpu.diff.fit import FitParams as JFitParams
 from ray_tracer_fragment_shader_tpu.diff.fit import default_fit_optimizer as j_opt

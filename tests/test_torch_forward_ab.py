@@ -9,6 +9,7 @@ import os
 import numpy as np
 import torch
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu_torch import forward_ab
 from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
 from ray_tracer_fragment_shader_tpu_torch.kernels.adjoint_fused import (

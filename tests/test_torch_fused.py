@@ -35,6 +35,7 @@ import optax
 import pytest
 import torch
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu.config import RenderConfig as JRenderConfig
 from ray_tracer_fragment_shader_tpu.core.renderer import render_rays
 from ray_tracer_fragment_shader_tpu.diff.fit import FitParams as JFitParams

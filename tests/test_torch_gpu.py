@@ -875,3 +875,134 @@ def test_core_l2_loss_gradients_on_the_card_match_the_cpu(cuda):
         scale = max(want.abs().max().item(), 1e-12)
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= 1e-3 * scale, f
+
+
+# ---- the multi-rank paths (parallel/, the sharded steps) ------------------
+
+def test_band_render_on_the_card_equals_the_full_frame(cuda):
+    """Ranks 0..2 of a world of 3 in one process: the row bands of the
+    chain kernel at 64^2 d3 (22-row bands, 2 padding rows), concatenated,
+    equal the full frame's render bit for bit (each pixel is the same
+    ray), and each band its plain version within phase 2's budget."""
+    from ray_tracer_fragment_shader_tpu_torch.parallel import shard as S
+    scene, cam, cfg, budget = case("full_reflective")
+    camera = Camera.from_config(cam, N, N, device=cuda)
+    K.reset_launch_counts()
+    bands = [S.render_band(scene, camera, cfg, r, 3, device=cuda)
+             for r in range(3)]
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["render_chain"] == 3
+    full = K.render_image_kernel(scene, camera, cfg, device=cuda)
+    assert torch.equal(torch.cat(bands)[:N], full)
+    tables = K.pack_scene(scene.to(cuda))
+    for r, band in enumerate(bands):
+        _, v = primary_rays(camera, S.band_points(camera, N, 22, r))
+        plain = K.render_chain_ref(tables, v.contiguous(),
+                                   camera.eye.tolist(),
+                                   **K.render_kwargs(scene, cfg))
+        assert_close_frac(plain, band.reshape(-1, 3), budget)
+
+
+@pytest.mark.parametrize("name", ["full_reflective", "fractional_glass"])
+def test_band_step_on_the_card_matches_plain_and_unsharded(cuda, name):
+    """The band step (K3+K4 on the chain, K6's tree on fractional_glass)
+    over a world of 3 in one process at 64^2: the ranks' buffers summed
+    in rank order against the unsharded ``fit_value_and_grad`` on the
+    card (loss within 1e-5 relative, each table within 1e-5 of max), and
+    each band's K4 (fed K3's own image and residuals) or K6 against its
+    plain version on the same inputs (loss within 1e-5, each table within
+    1e-3 of max|plain|), as ``chip_smoke.py`` phase 19."""
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import (
+        FitParams, band_fit_inputs, band_loss_grads)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    scene, cam, cfg, _ = case(name)
+    chain = scene.chain_exact
+    camera = Camera.from_config(cam, N, N, device=cuda)
+    target = K.render_image_kernel(scene, camera, cfg, device=cuda)
+    params = FitParams.from_scene(scene).to(cuda)
+    with torch.no_grad():
+        params.sph_center += 1.5
+    bands = [band_fit_inputs(camera, cfg, target, r, 3, device=cuda)
+             for r in range(3)]
+    K.reset_launch_counts()
+    total = sum(band_loss_grads(params, scene, camera, b, twophase=chain,
+                                device=cuda) for b in bands)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in K.LAUNCHES.items() if c} == (
+        {"render_packed": 3, "adjoint_packed": 3} if chain
+        else {"fused_adjoint": 3})
+    loss_u, grads_u = AF.fit_value_and_grad(
+        params, scene, camera, cfg, target,
+        mode="twophase" if chain else "fused", device=cuda)
+    ref = torch.cat([(loss_u * N * N * 3).reshape(1)] + [
+        grads_u[f].reshape(-1) for f in FitParams.FIELDS])
+    assert abs(total[0] - ref[0]) <= 1e-5 * abs(ref[0])
+    assert (total[1:] - ref[1:]).abs().max() <= 1e-5 * ref[1:].abs().max()
+    for b in bands:
+        v, eye, prep = b["prep"]["v"], b["prep"]["eye"], b["prep"]
+        if chain:
+            _, tables, kw, akw = AF.kernel_inputs(
+                params.into_scene(scene), b["config"], b["denom"] / 3,
+                device=cuda)
+            img, pk = K.render_packed(tables, v, eye, pack=akw["pack"], **kw)
+            args = (tables, v, eye, img, prep["target"], prep["mask"], pk)
+            got = AF.adjoint_packed(*args, **akw)
+            want = AF.adjoint_packed_ref(*args, **akw)
+        else:
+            _, tables, kw = AF.scene_tables(params.into_scene(scene),
+                                            b["config"], cuda)
+            args = (tables, v, eye, prep["target"], prep["mask"])
+            kw6 = dict(tree=True, g_scale=2.0 / b["denom"], **kw)
+            got = AF.fused_adjoint(*args, **kw6)
+            want = AF.fused_adjoint_ref(*args, **kw6)
+        assert abs(got[0] - want[0]) <= 1e-5 * max(abs(want[0]), 1e-30)
+        for g, w in zip(got[1:], want[1:]):
+            assert (g - w).abs().max() <= 1e-3 * max(w.abs().max(), 1e-30)
+
+
+def test_one_rank_nccl_step_matches_the_kernel_step(cuda):
+    """A one-rank NCCL group through ``initialize_multihost``: 3 Adam
+    steps of ``make_sharded_fit_step_kernel`` at 64^2 (full_reflective
+    d3, centres + 1.5), the first loss equal to ``make_fit_step_kernel``'s
+    bit for bit, the loss falling; ``render_image_sharded`` gathers the
+    kernel back end's one band."""
+    import socket
+    import torch.distributed as dist
+    from ray_tracer_fragment_shader_tpu_torch.diff.fit import (
+        FitParams, make_fit_step_kernel, make_sharded_fit_step_kernel)
+    from ray_tracer_fragment_shader_tpu_torch.parallel import (
+        make_mesh, render_image_sharded)
+    from ray_tracer_fragment_shader_tpu_torch.parallel.multihost import (
+        initialize_multihost)
+    scene, cam, cfg, _ = case("full_reflective")
+    camera = Camera.from_config(cam, N, N, device=cuda)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"localhost:{port}", num_processes=1, process_id=0)
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl" and mesh.device.type == "cuda"
+        target = render_image_sharded(scene, camera, cfg, mesh,
+                                      backend="kernel")
+        assert torch.equal(target, K.render_image_kernel(scene, camera, cfg,
+                                                         device=cuda))
+
+        def moved():
+            p = FitParams.from_scene(scene).to(cuda)
+            with torch.no_grad():
+                p.sph_center += 1.5
+            return p
+        p_ref, params = moved(), moved()
+        loss_ref = make_fit_step_kernel(
+            scene, camera, cfg, target,
+            torch.optim.Adam([p_ref.sph_center], lr=0.3), device=cuda)(p_ref)
+        step = make_sharded_fit_step_kernel(
+            scene, camera, cfg, target,
+            torch.optim.Adam([params.sph_center], lr=0.3), mesh)
+        losses = [float(step(params)) for _ in range(3)]
+        assert losses[0] == float(loss_ref)
+        assert losses[-1] < losses[0]
+    finally:
+        dist.destroy_process_group()

@@ -9,6 +9,7 @@ import re
 import subprocess
 import sys
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 import ray_tracer_fragment_shader_tpu_torch as port
 
 PORT_DIR = os.path.dirname(port.__file__)
@@ -88,6 +89,35 @@ def test_every_module_is_found():
             "ray_tracer_fragment_shader_tpu_torch.oracle.numpy_ref",
             "ray_tracer_fragment_shader_tpu_torch.oracle.gradcheck",
             "ray_tracer_fragment_shader_tpu_torch.grad_bar"} <= names
+
+
+def test_parallel_utils_and_native_oracle_import_no_jax_and_build_in_build():
+    """The multi-rank paths, the utils and the C++ oracle's binding run on
+    the card's machine: they are among the modules test_port_imports_no_jax
+    imports (no JAX nor the JAX package), and hold no try/except that
+    could hide a failed collective, build or launch;
+    the oracle's library is built only under the port's gitignored
+    ``_build/`` (never beside the JAX package's source)."""
+    new = ["parallel", "parallel.mesh", "parallel.shard",
+           "parallel.multihost", "utils.logging", "utils.guards",
+           "utils.profiling", "utils.checkpoint", "oracle.native"]
+    names = {m.name for m in pkgutil.walk_packages(port.__path__,
+                                                   port.__name__ + ".")}
+    # found by the walk, so test_port_imports_no_jax imports each of them
+    assert {f"{port.__name__}.{n}" for n in new} <= names
+    for n in new:
+        path = os.path.join(PORT_DIR, *n.split(".")) + (
+            "/__init__.py" if n == "parallel" else ".py")
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"^\s*(try\s*:|except\b)", src, re.M), path
+    from ray_tracer_fragment_shader_tpu_torch.oracle import native
+    assert native.BUILD_DIR == os.path.join(PORT_DIR, "_build")
+    assert os.path.dirname(native.library_path()) == native.BUILD_DIR
+    assert native.SRC == os.path.join(PORT_DIR, "oracle", "cpp",
+                                      "reference_oracle.cpp")
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        assert "ray_tracer_fragment_shader_tpu_torch/_build/" in f.read()
 
 
 def test_oracle_and_grad_bar_import_no_jax():

@@ -27,6 +27,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu_torch.kernels import probe as PR
 from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
 

@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu.ops import rays as jrays
 from ray_tracer_fragment_shader_tpu_torch.config import CameraConfig
 from ray_tracer_fragment_shader_tpu_torch.ops import rays as trays

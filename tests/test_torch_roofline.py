@@ -21,6 +21,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu.utils import roofline as JR
 from ray_tracer_fragment_shader_tpu_torch.diff.fit import FitParams
 from ray_tracer_fragment_shader_tpu_torch.kernels import adjoint_fused as AF

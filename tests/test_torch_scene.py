@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu.kernels import render_pallas as jrp
 from ray_tracer_fragment_shader_tpu.scene import flat as jflat
 from ray_tracer_fragment_shader_tpu.scene import presets as jpresets

@@ -29,6 +29,7 @@ import torch_jax_ref
 import torch_soft_ref as R
 from torch_jax_ref import port_configs, port_scene
 from torch_soft_ref import FIELDS, SIGMA, SIZE
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu.diff import multiview as JM
 from ray_tracer_fragment_shader_tpu.diff.fit import FitParams as JFitParams
 from ray_tracer_fragment_shader_tpu.scene import presets as jpresets

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu_threads import one_cpu_thread  # noqa: F401 (autouse)
 from ray_tracer_fragment_shader_tpu.kernels.adjoint import (
     replay_render as j_replay)
 from ray_tracer_fragment_shader_tpu.kernels.adjoint import (

@@ -1,7 +1,7 @@
-"""One JAX subprocess per test module of the port's core renderer
-(test_torch_core.py, test_torch_soft_multiview.py): the module, run as a
-script, computes every JAX-side array it compares with and saves them to
-an npz.
+"""One JAX subprocess per test module of the port that compares with the
+JAX package's XLA paths (test_torch_core.py, test_torch_soft_multiview.py,
+test_torch_parallel.py): the module, run as a script, computes every
+JAX-side array it compares with and saves them to an npz.
 
 The subprocess runs with ``XLA_FLAGS=--xla_cpu_max_isa=AVX``: XLA's
 compiled CPU programs otherwise contract ``a*b + c`` into fused
@@ -13,12 +13,11 @@ too: its programs compile in two thirds of the time, to the same outputs.
 
 ``start`` starts it (with an npz of inputs, when the port computes some),
 and its ``result()`` collects its arrays: a module starts it as it
-starts, so the module's tests that need no JAX run beside it, on
-``BESIDE_THREADS`` of PyTorch's CPU threads until the result is in (the
-port's CPU renders are bound by per-operation overhead: a multi-view fit
-at 96^2 took 30 s on one thread and 22.5 s on eight, and eight threads
-beside XLA's compile took twice as long).  ``run`` does both.  ``port_scene`` and ``port_configs`` carry the JAX package's
-scene and configs across to the port.
+starts, so the module's tests that need no JAX run beside it, on the one
+PyTorch CPU thread every port test module runs on
+(``tests/torch_cpu_threads.py``).  ``run`` does both.  ``port_scene`` and
+``port_configs`` carry the JAX package's scene and configs across to the
+port.
 """
 import dataclasses
 import os
@@ -28,28 +27,18 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BESIDE_THREADS = 2
 
 
 class Pending:
-    """A running JAX subprocess and the npz it writes; PyTorch keeps
-    ``BESIDE_THREADS`` CPU threads while it runs."""
+    """A running JAX subprocess and the npz it writes."""
 
     def __init__(self, proc: subprocess.Popen, out):
-        import torch
         self.proc, self.out, self.arrays = proc, out, None
-        self.threads = torch.get_num_threads()
-        torch.set_num_threads(min(BESIDE_THREADS, self.threads))
-
-    def _restore(self) -> None:
-        import torch
-        torch.set_num_threads(self.threads)
 
     def result(self) -> dict:
         """Waits for the subprocess; its npz as a dict of arrays."""
         if self.arrays is None:
             _, err = self.proc.communicate(timeout=600)
-            self._restore()
             assert self.proc.returncode == 0, err[-4000:]
             with np.load(self.out) as z:
                 self.arrays = {k: z[k] for k in z.files}
@@ -60,7 +49,6 @@ class Pending:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.communicate()
-        self._restore()
 
 
 def start(script: str, out, inputs: dict = None) -> Pending:
