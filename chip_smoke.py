@@ -216,6 +216,24 @@ Phases (each raises on failure; the script then exits non-zero):
    ``make_fit_step_kernel``'s bit for bit) and one ``scaling_sweep`` row
    at world 1 (step ms and rays/s beside the card's name and power
    limit).
+20. the cell scripts (``scripts_phase``: ray_tracer_fragment_shader_tpu_
+   torch/scripts/), each run by its own functions with the launch counters
+   zeroed just before and read just after: ``depth_sweep.sweep`` at full
+   width, 8 iterations and 1 repeat, mode "twophase" (K2, K3, K4 and K5
+   launched, K6 not; every row printed beside the card's name and power
+   limit; every fwd+bwd row with live pixels), then its depth-5 chain image
+   (1024^2) and depth-4 tree image (512^2) against their plain versions
+   (phase 2's budget), its depth-5 two-phase step's K3 image and residuals
+   and its loss and tables against the plain versions on K3's outputs
+   (phase 4's tolerances), and one depth-5 step with mode="fused" (K6
+   alone) against it (phase 6's); ``bench_reference_demo.bench`` at its
+   defaults (K2 alone; ``frame_time_ms``, ``samples_rendered`` and both
+   ray rates printed), its frame on the seeded jitter tensor equal to the
+   bench's bit for bit and held against the same adaptive loop with the
+   chain kernel's plain version in place of K2 (2 % budget); and
+   ``make_fit_demo.fit_demo`` in a short form (64^2, 3 views, 1 restart of
+   3 steps, 5 steps a sigma, 5 polish steps; no kernel launched, the loss
+   falls, its five files written under chiprun_out/chip_smoke/fit_demo_64/).
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.  The bf16 rows
@@ -1583,6 +1601,176 @@ def parallel_phase(dev, card, launches, errs):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     print(f"phase 19: {time.perf_counter() - t19:.1f} s")
+
+
+def scripts_phase(dev, card, launches, errs, fracs):
+    """Phase 20: the cell scripts (ray_tracer_fragment_shader_tpu_torch.
+    scripts), run by their own functions on the card, each with the launch
+    counters zeroed just before it and read just after.  The depth sweep
+    at full width and few iterations (K2, K3, K4, K5; every fwd+bwd row
+    with live pixels), its depth-5 chain image, depth-5 two-phase loss and
+    tables and depth-4 tree image against their plain versions, and one
+    depth-5 step with mode="fused" (K6) against K3+K4; the reference's
+    frame (K2 alone), held against the same adaptive loop run with the
+    chain kernel's plain version on the same jitter; the fit demo's short
+    form (no kernel; the loss falls, five files written).  Adds to
+    ``launches``, ``errs`` and ``fracs``."""
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import (
+        primary_rays, sample_jitter, screen_points)
+    from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    from ray_tracer_fragment_shader_tpu_torch.scripts import (
+        bench_reference_demo as BD, depth_sweep as DS, make_fit_demo as FD)
+    t20 = time.perf_counter()
+
+    def counted(label, fn, want=(), absent=()):
+        """``fn()`` with the counters zeroed; each kernel of ``want``
+        launched, none of ``absent``; the counts added to ``launches``."""
+        K.reset_launch_counts()
+        out = fn()
+        _sync(dev)
+        counts = {k: c for k, c in K.LAUNCHES.items() if c}
+        print(f"path {label}: launches {counts}")
+        for k in want:
+            check(counts.get(k, 0) > 0, f"{label}: never launched {k}")
+        for k in absent:
+            check(k not in counts, f"{label}: launched {k}")
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        return out
+
+    def hold_image(kname, label, img, c, plain, budget):
+        """A path's image against the plain version on its rays."""
+        scene, camera, cfg = c["scene"], c["camera"], c["config"]
+        _, v = primary_rays(camera, screen_points(camera, cfg.width,
+                                                  cfg.height))
+        ref = plain(K.pack_scene(scene.to(dev)), v.contiguous(),
+                    camera.eye.tolist(), **K.render_kwargs(scene, cfg))
+        r = compare(img, ref.reshape(img.shape), budget)
+        errs[kname].append(r["max_abs_err"])
+        fracs[kname].append(r["frac"])
+        print(f"check {kname} {label}: {r['frac']:.6f} of pixels > "
+              f"{FRAC_TOL} (budget {budget}), max abs err "
+              f"{r['max_abs_err']:.4g}, mean {r['mean']:.6f} vs plain "
+              f"{r['plain_mean']:.6f}")
+        check(r["ok"], f"{kname} disagrees with its plain version on {label}")
+
+    # -- 1. the depth sweep at full width, few iterations
+    rows = counted(
+        "depth sweep (1024^2 chain and two-phase fwd+bwd d2/3/5, 512^2 "
+        "tree d2-4)",
+        lambda: DS.sweep(iters=8, reps=1, mode="twophase", device=dev,
+                         on_row=lambda r: print(
+                             f"phase 20 depth sweep {json.dumps(r)} "
+                             f"[{card}]")),
+        want=["render_chain", "render_packed", "adjoint_packed",
+              "render_tree"], absent=["fused_adjoint"])
+    for r in rows:
+        if r["kernel"] == "fused_fwd_bwd":
+            check(r["live_pixels"] > 0,
+                  f"depth sweep d{r['depth']}: a step with no live pixel")
+    c = DS.chain_case(1024, 5, dev)
+    hold_image("render_chain", "depth sweep chain 1024^2 d5",
+               DS.render_frame(c, dev), c, K.render_chain_ref, 0.01)
+    c = DS.tree_case(512, 4, dev)
+    hold_image("render_tree", "depth sweep tree 512^2 d4",
+               DS.render_frame(c, dev), c, K.render_tree_ref, 0.01)
+    c = DS.fwd_bwd_case(1024, 5, dev)
+    loss, grads = counted("depth sweep fwd+bwd 1024^2 d5, twophase",
+                          lambda: DS.fwd_bwd_step(c, dev, mode="twophase"),
+                          want=["render_packed", "adjoint_packed"])
+    # the same inputs through the plain versions: K3's plain image and
+    # residuals against K3's, K4's plain version on K3's outputs
+    x = fit_inputs(K, AF, dev, presets.full_reflective(size=1024, depth=5),
+                   dc=DS.MOVE)
+    t, v, eye, kw = x["tables"], x["v"], x["eye"], x["kw"]
+    img_ref, pk_ref = K.render_packed_ref(t, v, eye, pack=x["akw"]["pack"],
+                                          **kw)
+    r = compare(x["img"], img_ref, 0.01)
+    errs["render_packed"].append(r["max_abs_err"])
+    fracs["render_packed"].append(r["frac"])
+    pk_frac = (x["pk"] != pk_ref).float().mean().item()
+    print(f"check render_packed depth sweep 1024^2 d5: {r['frac']:.6f} of "
+          f"pixels > {FRAC_TOL}, {pk_frac:.6f} of packed residuals differ "
+          f"(budget 0.01 each)")
+    check(r["ok"] and pk_frac <= 0.01, "render_packed at d5")
+    ref = AF.adjoint_packed_ref(t, v, eye, x["img"], x["target"], x["mask"],
+                                x["pk"], **x["akw"])
+    errs["adjoint_packed"].append(hold_fields(
+        "adjoint_packed", "depth sweep fwd+bwd 1024^2 d5 (path)", loss, grads,
+        ref[0] / (v.shape[0] * 3), as_fields(AF, x, ref[1:])))
+    loss6, grads6 = counted("depth sweep fwd+bwd 1024^2 d5, fused",
+                            lambda: DS.fwd_bwd_step(c, dev, mode="fused"),
+                            want=["fused_adjoint"],
+                            absent=["render_packed", "adjoint_packed"])
+    errs["fused_adjoint"].append(hold_fields(
+        "fused_adjoint", "depth sweep fwd+bwd 1024^2 d5 (path)", loss6,
+        grads6, loss, grads, against="K3+K4"))
+    del c, x, t, v, ref, img_ref, pk_ref
+    torch.cuda.empty_cache()
+
+    # -- 2. the reference's own frame
+    out = counted("reference frame 500^2 d5 16 spp adaptive",
+                  lambda: BD.bench(device=dev), want=["render_chain"])
+    print(f"phase 20 reference frame: frame_time_ms {out['frame_time_ms']} "
+          f"(reps {out['frame_time_ms_reps']}), samples_rendered "
+          f"{out['samples_rendered']}, rays_per_s {out['rays_per_s']} (all "
+          f"16 samples), traced_rays_per_s {out['traced_rays_per_s']} "
+          f"[{card}]")
+    check(1 <= out["samples_rendered"] <= 16, "reference frame's samples")
+    c = BD.demo_case(dev)
+    cfg = c["config"]
+    gen = torch.Generator(dev).manual_seed(cfg.seed)
+    jit = torch.stack([sample_jitter(gen, cfg.width * cfg.height,
+                                     cfg.jitter_scale).to(dev)
+                       for _ in range(cfg.samples)])
+    img = BD.frame(c, dev, jitter=jit)
+    same = torch.equal(img, BD.frame(c, dev))
+    print(f"check reference frame: the frame on the seeded jitter tensor "
+          f"equals the bench's frame bit for bit: {same}")
+    check(same, "reference frame: the jitter tensor is not the bench's")
+    chain = K.render_chain
+    K.render_chain = K.render_chain_ref     # the same loop, plain samples
+    try:
+        plain = counted("reference frame, plain chain",
+                        lambda: BD.frame(c, dev, jitter=jit),
+                        absent=["render_chain"])
+    finally:
+        K.render_chain = chain
+    r = compare(img, plain, 0.02)
+    errs["render_chain"].append(r["max_abs_err"])
+    fracs["render_chain"].append(r["frac"])
+    print(f"check render_chain reference frame 500^2 d5 16 spp adaptive "
+          f"against the loop on the plain version: {r['frac']:.6f} of "
+          f"pixels > {FRAC_TOL} (budget 0.02), max abs err "
+          f"{r['max_abs_err']:.4g}")
+    check(r["ok"], "reference frame disagrees with the plain loop")
+    del img, plain, jit
+
+    # -- 3. the fit demo, short form: no kernel
+    fit_dir = os.path.join(OUT_DIR, "fit_demo_64")
+    rep = counted("fit demo 64^2, 3 views, short form",
+                  lambda: FD.fit_demo(size=64, out=fit_dir, device=dev,
+                                      restarts=1, restart_steps=3,
+                                      steps_per_sigma=5,
+                                      light_polish_steps=5))
+    check(not any(K.LAUNCHES.values()), "the fit demo launched a kernel")
+    e0, e1 = rep["init_errors"], rep["final_errors"]
+    print(f"phase 20 fit demo 64^2: loss {rep['loss_init']:.6g} -> "
+          f"{rep['loss_fit']:.6g}, centre error {e0['center_err_max']:.4g} "
+          f"-> {e1['center_err_max']:.4g}, light {e0['light_err_max']:.4g} "
+          f"-> {e1['light_err_max']:.4g}, {rep['fit_wall_s']} s; files "
+          f"{sorted(os.listdir(fit_dir))} [{card}]")
+    check(rep["loss_fit"] < rep["loss_init"], "fit demo: the loss rose")
+    check(set(os.listdir(fit_dir)) >= {"before.png", "target.png",
+                                       "after.png", "triptych.png",
+                                       "recovery.json"},
+          "fit demo: files missing")
+    torch.cuda.empty_cache()
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s")
 
 
 def host_ms(fn, reps: int) -> list:
@@ -2995,6 +3183,9 @@ def main():
 
     # ---- 19. the multi-rank paths: band render, band steps, one-rank NCCL -
     parallel_phase(dev, card, launches, errs)
+
+    # ---- 20. the cell scripts: depth sweep, reference frame, fit demo ----
+    scripts_phase(dev, card, launches, errs, fracs)
 
     kernels = []
     for k in list(KERNEL_SOURCES) + list(BF16_ROWS):

@@ -1006,3 +1006,60 @@ def test_one_rank_nccl_step_matches_the_kernel_step(cuda):
         assert losses[-1] < losses[0]
     finally:
         dist.destroy_process_group()
+
+
+# ---- the cell scripts (ray_tracer_fragment_shader_tpu_torch/scripts/) -----
+
+def test_depth_sweep_on_the_card(cuda, tmp_path):
+    """``depth_sweep.main`` at 64^2, 2 iterations: one build record, every
+    row timed beside the card's name and power limit, live pixels in every
+    fwd+bwd row, and its kernels launched."""
+    from ray_tracer_fragment_shader_tpu_torch.scripts import depth_sweep
+    K.reset_launch_counts()
+    out = depth_sweep.main(["--size", "64", "--tree-size", "64", "--iters",
+                            "2", "--reps", "1", "--out",
+                            str(tmp_path / "sweep.json")])
+    assert out["device"] == torch.cuda.get_device_name(0)
+    assert out["power_limit"] and set(out["build"]) == {"seconds", "built"}
+    assert len(out["rows"]) == 9
+    for row in out["rows"]:
+        assert row["step_ms"] > 0
+        if row["kernel"] == "fused_fwd_bwd":
+            assert row["live_pixels"] > 0
+    for k in ("render_chain", "render_tree", "render_packed",
+              "adjoint_packed"):
+        assert K.LAUNCHES[k] > 0, k
+
+
+def test_reference_frame_on_the_card_matches_the_cpu(cuda):
+    """The reference's frame at 64^2 (16 samples, adaptive) on the card and
+    through the plain version on the CPU, on one jitter tensor: phase 2's
+    2 % budget; ``samples_rendered`` counts K2's launches."""
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import sample_jitter
+    from ray_tracer_fragment_shader_tpu_torch.scripts import (
+        bench_reference_demo as BD)
+    imgs = {}
+    for dev in (torch.device("cpu"), cuda):
+        c = BD.demo_case(dev, size=N)
+        cfg = c["config"]
+        gen = torch.Generator().manual_seed(cfg.seed)
+        jit = torch.stack([sample_jitter(gen, N * N, cfg.jitter_scale)
+                           for _ in range(cfg.samples)]).to(dev)
+        imgs[dev.type] = BD.frame(c, dev, jitter=jit).cpu()
+    assert_close_frac(imgs["cpu"], imgs["cuda"], 0.02)
+    before = K.LAUNCHES["render_chain"]
+    n = BD.samples_rendered(BD.demo_case(cuda, size=N), cuda)
+    assert 1 <= n <= 16 and K.LAUNCHES["render_chain"] - before == n
+
+
+def test_fit_demo_on_the_card_launches_no_kernel(cuda, tmp_path):
+    """``make_fit_demo.fit_demo`` in a short form at 32^2 on the card: the
+    core only, the loss falls, five files."""
+    from ray_tracer_fragment_shader_tpu_torch.scripts import make_fit_demo
+    K.reset_launch_counts()
+    rep = make_fit_demo.fit_demo(size=32, out=str(tmp_path), device=cuda,
+                                 restarts=1, restart_steps=2,
+                                 steps_per_sigma=3, light_polish_steps=3)
+    assert not any(K.LAUNCHES.values())
+    assert rep["loss_fit"] < rep["loss_init"]
+    assert len(os.listdir(tmp_path)) == 5

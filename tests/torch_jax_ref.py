@@ -51,9 +51,9 @@ class Pending:
             self.proc.communicate()
 
 
-def start(script: str, out, inputs: dict = None) -> Pending:
-    """Starts ``python script out [inputs.npz]`` on the CPU without FMA in
-    XLA."""
+def start(script: str, out, inputs: dict = None, extra=()) -> Pending:
+    """Starts ``python script out [inputs.npz] [extra...]`` on the CPU
+    without FMA in XLA."""
     flags = os.environ.get("XLA_FLAGS", "")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"{flags} --xla_cpu_max_isa=AVX".strip(),
@@ -63,6 +63,7 @@ def start(script: str, out, inputs: dict = None) -> Pending:
     if inputs is not None:
         args.append(str(out) + ".inputs.npz")
         np.savez(args[-1], **inputs)
+    args += [str(a) for a in extra]
     return Pending(subprocess.Popen(args, env=env, cwd=REPO,
                                     stdout=subprocess.DEVNULL,
                                     stderr=subprocess.PIPE, text=True), out)
