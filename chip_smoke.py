@@ -234,6 +234,20 @@ Phases (each raises on failure; the script then exits non-zero):
    ``make_fit_demo.fit_demo`` in a short form (64^2, 3 views, 1 restart of
    3 steps, 5 steps a sigma, 5 polish steps; no kernel launched, the loss
    falls, its five files written under chiprun_out/chip_smoke/fit_demo_64/).
+21. the look-at scanline of even-size frames (``checker_edge_phase``): a
+   triangle's hit point is o + m*v in every kernel; ``render_image_kernel``
+   renders the reference's 500^2 frame at one sample and config 3 (K2) and
+   fractional_glass 1024^2 d3 (K5), the counters zeroed just before; each
+   frame's middle row, whose rays meet the board on a checker square's
+   edge, is held against its plain version and against the port's f64
+   oracle (oracle/numpy_ref.py): no primary hit may take another material
+   than the oracle's, and a pixel over 1e-3 passes only where a later
+   bounce meets the board on a square's edge (a tie float32 cannot
+   settle) and the card's colour is within 1e-3 of the oracle's with that
+   bounce on the other square; the row's residual planes (residual K2 / K5) and K3's packed
+   planes equal the plain version's; then K2, K3, K5, the residual forms,
+   K4, K6, K7 and K8 are timed as in phase 8 (counts and times in
+   chiprun_out/chip_smoke/checker_edge.json).
 A kernel's ``max_abs_err`` in the ``kernels`` line is the largest over
 every check (for K4, over the gradient tables), and ``max_mismatch_frac``
 (forward kernels) the largest fraction of pixels over 1e-3.  The bf16 rows
@@ -1773,6 +1787,230 @@ def scripts_phase(dev, card, launches, errs, fracs):
     print(f"phase 20: {time.perf_counter() - t20:.1f} s")
 
 
+def four_times(pk_fn, pp_fn, reps_k, reps_p):
+    """(kernel ms, plain ms, runs) by CUDA events, timed plain, kernel,
+    kernel, plain."""
+    from ray_tracer_fragment_shader_tpu_torch.utils.timing import time_ms
+    t_p1 = time_ms(pp_fn, reps_p)
+    t_k1 = time_ms(pk_fn, reps_k)
+    t_k2 = time_ms(pk_fn, reps_k)
+    t_p2 = time_ms(pp_fn, reps_p)
+    return (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2, (t_k1, t_k2, t_p1, t_p2)
+
+
+def checker_edge_phase(dev, card, launches, errs, fracs):
+    """Phase 21: the look-at scanline of even-size frames on the card.  A
+    triangle's hit point is o + m*v in every kernel and plain version (the
+    core's and the oracle's); at an even height the middle row's rays meet
+    the board on a checker square's edge, where o + |v|*m*u picked the
+    other square on about a third of the board pixels.  ``render_image_
+    kernel`` (counters zeroed just before, read just after) renders the
+    reference's 500^2 frame at one sample (K2), config 3 (K2) and
+    fractional_glass 1024^2 d3 (K5); each frame's look-at row against its
+    plain version on the row's rays and against the f64 oracle: every
+    pixel over 1e-3 is counted, and fails the run unless its primary hit's
+    material equals the oracle's, a later bounce meets the board on a
+    square's edge (a tie no rounding settles) and the card's colour is
+    within 1e-3 of the oracle's with one or more of those bounces on the
+    other square (``oracle_pixels(..., ties=True)``); the level-0
+    material plane of the residual form (residual K2 / K5) equals the
+    oracle's primary materials on the whole row, and the row's planes
+    equal the plain version's, as do the packed forward's (K3) on the
+    chain scenes.  Then
+    the kernels whose device code changed (K2, K3, K5, the residual forms,
+    K4, K6, K7, K8) are timed as phase 8 times them, plain, kernel, kernel,
+    plain, and everything is written to chiprun_out/chip_smoke/
+    checker_edge.json.  Adds to ``launches``, ``errs`` and ``fracs``."""
+    import numpy as np
+    import torch
+    from ray_tracer_fragment_shader_tpu_torch.kernels import (
+        adjoint_fused as AF)
+    from ray_tracer_fragment_shader_tpu_torch.kernels import render as K
+    from ray_tracer_fragment_shader_tpu_torch.oracle import oracle_pixels
+    from ray_tracer_fragment_shader_tpu_torch.ops.rays import (
+        Camera, primary_rays, screen_points)
+    from ray_tracer_fragment_shader_tpu_torch.scene import presets
+    t21 = time.perf_counter()
+    demo, demo_cam, demo_cfg = presets.reference_demo()
+    cases = (
+        ("reference_demo 500^2 d5 1spp", "render_chain",
+         (demo, demo_cam, dataclasses.replace(demo_cfg, samples=1))),
+        ("config 3 1024^2 d3", "render_chain",
+         presets.full_reflective(size=1024, depth=3)),
+        ("fractional_glass 1024^2 d3", "render_tree",
+         presets.fractional_glass(size=1024, depth=3)))
+    report = {"card": card, "scanlines": {}, "times": {}}
+    for label, kname, (scene, cam, cfg) in cases:
+        w, h = cfg.width, cfg.height
+        j = h // 2
+        camera = Camera.from_config(cam, w, h, device=dev)
+        K.reset_launch_counts()
+        img = K.render_image_kernel(scene, camera, cfg, device=dev)
+        _sync(dev)
+        counts = {k: c for k, c in K.LAUNCHES.items() if c}
+        print(f"path render_image_kernel {label}: launches {counts}")
+        check(counts.get(kname, 0) > 0, f"{label}: never launched {kname}")
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        tree = kname == "render_tree"
+        # the row's rays, and the whole frame's for the residual forms
+        _, v_all = primary_rays(camera, screen_points(camera, w, h))
+        v_all = v_all.contiguous()
+        v_row = v_all.reshape(h, w, 3)[j].contiguous()
+        scene_c, tables, kw = AF.scene_tables(scene, cfg, dev)
+        eye = camera.eye.tolist()
+        row = img[j]
+        plain = (K.render_tree_ref if tree else K.render_chain_ref)(
+            tables, v_row, eye, **kw)
+        r = compare(row, plain, 0.01)
+        errs[kname].append(r["max_abs_err"])
+        fracs[kname].append(r["frac"])
+        print(f"check {kname} {label} row {j}: {r['frac']:.5f} of pixels > "
+              f"{FRAC_TOL} from the plain version (budget 0.01), max abs "
+              f"err {r['max_abs_err']:.4g}")
+        check(r["ok"], f"{kname} disagrees with its plain version on "
+                       f"{label}'s look-at row")
+        # residual form: planes of the row against the plain version's
+        rname = "render_tree_residuals" if tree else "render_chain_residuals"
+        rimg, res = K.render_residuals(tables, v_all, eye, tree=tree, **kw)
+        rimg_ref, res_ref = K.render_residuals_ref(tables, v_row, eye,
+                                                   tree=tree, **kw)
+        rows = {k: t.reshape(*t.shape[:-1], h, w)[..., j, :]
+                for k, t in res.items()}
+        same = {k: bool(torch.equal(rows[k], res_ref[k])) for k in rows}
+        r = compare(rimg.reshape(h, w, 3)[j], rimg_ref, 0.01)
+        errs[rname].append(r["max_abs_err"])
+        fracs[rname].append(r["frac"])
+        print(f"check {rname} {label} row {j}: planes equal the plain "
+              f"version's {same}; image {r['frac']:.5f} of pixels > "
+              f"{FRAC_TOL}, max abs err {r['max_abs_err']:.4g}")
+        check(all(same.values()) and r["ok"],
+              f"{rname} disagrees with its plain version on {label}'s "
+              f"look-at row")
+        if not tree:
+            pack = K.pack_widths(tables["tri"].shape[0], scene_c.num_spheres,
+                                 scene_c.num_materials, scene_c.num_lights)
+            pimg, pk = K.render_packed(tables, v_all, eye, pack=pack, **kw)
+            planes = K.unpack_residuals(pk.reshape(-1, h, w)[:, j], kw["nl"],
+                                        pack)
+            same_p = {k: bool(torch.equal(planes[k], res_ref[k]))
+                      for k in planes}
+            pimg_row = pimg.reshape(h, w, 3)[j]
+            print(f"check render_packed {label} row {j}: unpacked planes "
+                  f"equal the plain version's {same_p}; image equal to "
+                  f"K2's row bit for bit: {torch.equal(pimg_row, row)}")
+            check(all(same_p.values()) and torch.equal(pimg_row, row),
+                  f"render_packed disagrees on {label}'s look-at row")
+        # the oracle
+        t0 = time.perf_counter()
+        want, hits, alts = oracle_pixels(scene, cam, cfg,
+                                         [(j, i) for i in range(w)],
+                                         ties=True)
+        mids = np.asarray([-1 if x is None else x.mat_id for x in hits])
+        got = row.double().cpu().numpy()
+        mid0 = rows["mid"][0].cpu().numpy()
+        primary = np.flatnonzero((mids >= 0) & (mid0 != mids))
+        over = np.flatnonzero(np.abs(got - want).max(-1) > FRAC_TOL)
+        # each pixel over: the card's distance to the nearest of the
+        # oracle's colours with its edge bounces on the other square
+        near = {int(i): float(np.abs(alts[i] - got[i]).max(-1).min())
+                if len(alts[i]) else None for i in over}
+        ties = [i for i, d in near.items()
+                if i not in primary and d is not None and d <= FRAC_TOL]
+        other = [int(i) for i in over if i not in primary and i not in ties]
+        entry = dict(row=j, width=w, over=len(over),
+                     primary_material_mismatches=len(primary),
+                     later_bounce_edge_ties=ties,
+                     tie_err_vs_other_square=[near[i] for i in ties],
+                     edge_bounce_sets=[len(alts[i]) for i in ties],
+                     other=other,
+                     max_abs_err_vs_oracle=float(
+                         np.abs(got - want).max()),
+                     oracle_s=time.perf_counter() - t0)
+        report["scanlines"][label] = entry
+        print(f"phase 21 scanline {label}: row {j} of {h}, {len(over)} of "
+              f"{w} pixels over {FRAC_TOL} from the f64 oracle; primary "
+              f"materials differing from the oracle's: {len(primary)} "
+              f"(must be 0); pixels over whose path meets the board on a "
+              f"square's edge after the primary hit and that are within "
+              f"{FRAC_TOL} of the oracle's colour with the other square "
+              f"there (ties): {len(ties)} {ties}, max distance "
+              f"{max([near[i] for i in ties], default=0.0):.3g}; others "
+              f"(must be none): {other} [{card}]")
+        check(len(primary) == 0, f"{label}: the level-0 material differs "
+                                 f"from the oracle's at {primary.tolist()}")
+        check(not other, f"{label}: pixels {other} leave the f64 oracle")
+        del img, v_all, res, rimg
+        torch.cuda.empty_cache()
+
+    # times of the kernels whose device code changed, as phase 8 times them
+    def rays_of(preset):
+        scene, cam, cfg = preset
+        camera = Camera.from_config(cam, cfg.width, cfg.height, device=dev)
+        _, v = primary_rays(camera, screen_points(camera, cfg.width,
+                                                  cfg.height))
+        return (K.pack_scene(scene.to(dev)), v.contiguous(),
+                camera.eye.tolist(), K.render_kwargs(scene, cfg))
+
+    fr3 = presets.full_reflective(size=1024, depth=3)
+    fg3 = presets.fractional_glass(size=1024, depth=3)
+    timed = {}
+    for tree, preset in ((False, fr3), (True, fg3)):
+        t, v, eye, kw = rays_of(preset)
+        fwd = "render_tree" if tree else "render_chain"
+        timed[fwd] = (lambda t=t, v=v, eye=eye, kw=kw, f=getattr(K, fwd):
+                      f(t, v, eye, **kw),
+                      lambda t=t, v=v, eye=eye, kw=kw,
+                      f=getattr(K, fwd + "_ref"): f(t, v, eye, **kw), 3)
+        timed[fwd + "_residuals"] = (
+            lambda t=t, v=v, eye=eye, kw=kw, tree=tree:
+            K.render_residuals(t, v, eye, tree=tree, **kw),
+            lambda t=t, v=v, eye=eye, kw=kw, tree=tree:
+            K.render_residuals_ref(t, v, eye, tree=tree, **kw), 2)
+    x = fit_inputs(K, AF, dev, fr3)
+    t, v, eye, kw, akw = x["tables"], x["v"], x["eye"], x["kw"], x["akw"]
+    args4 = (t, v, eye, x["img"], x["target"], x["mask"], x["pk"])
+    res8 = K.render_residuals(t, v, eye, tree=False, **kw)[1]
+    g8 = (akw["g_scale"] * (x["img"] - x["target"])).contiguous()
+    fkw = {k: akw[k] for k in ("nl", "depth", "atten", "want_trans")}
+    args6, kw6 = fused_args(x)
+    timed.update(
+        render_packed=(lambda: K.render_packed(t, v, eye, pack=akw["pack"],
+                                               **kw),
+                       lambda: K.render_packed_ref(t, v, eye,
+                                                   pack=akw["pack"], **kw),
+                       2),
+        adjoint_packed=(lambda: AF.adjoint_packed(*args4, **akw),
+                        lambda: AF.adjoint_packed_ref(*args4, **akw), 2),
+        fit_grads=(lambda: AF.fit_grads(t, v, eye, g8, res8, **fkw),
+                   lambda: AF.fit_grads_ref(t, v, eye, g8, res8, **fkw), 1),
+        fused_adjoint=(lambda: AF.fused_adjoint(*args6, **kw6),
+                       lambda: AF.fused_adjoint_ref(*args6, **kw6), 1))
+    x7 = fit_inputs(K, AF, dev, (demo, demo_cam,
+                                 dataclasses.replace(demo_cfg, samples=1)))
+    args7, kw7 = recompute_args(K, x7)
+    timed["recompute_adjoint"] = (
+        lambda: AF.recompute_adjoint(*args7, **kw7),
+        lambda: AF.recompute_adjoint_ref(*args7, **kw7), 1)
+    where = {"render_tree": "fractional_glass 1024^2 d3",
+             "render_tree_residuals": "fractional_glass 1024^2 d3",
+             "recompute_adjoint": "reference_demo 500^2 d5, one sample"}
+    for kname, (kern, plain, reps_p) in timed.items():
+        tk, tp, runs = four_times(kern, plain, 20, reps_p)
+        label = where.get(kname, "config 3 1024^2 d3")
+        report["times"][kname] = dict(case=label, ms=tk, plain_ms=tp,
+                                      runs=list(runs))
+        print(f"phase 21 time {kname} {label}: kernel {tk:.4f} ms "
+              f"({runs[0]:.4f}, {runs[1]:.4f}); plain {tp:.2f} ms "
+              f"({runs[2]:.2f}, {runs[3]:.2f}) [{card}]")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "checker_edge.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    del x, x7, args4, args6, args7, res8, g8
+    torch.cuda.empty_cache()
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s")
+
+
 def host_ms(fn, reps: int) -> list:
     """Host-clock times of ``reps`` calls of ``fn``, each ending in a
     synchronize, after one warm-up call; ms, sorted."""
@@ -2701,14 +2939,6 @@ def main():
     times, bounds = {}, {}
     works = {}  # each kernel's work on its timed inputs, for phase 13
 
-    def four_times(pk_fn, pp_fn, reps_k, reps_p):
-        """(kernel ms, plain ms, runs) timed plain, kernel, kernel, plain."""
-        t_p1 = time_ms(pp_fn, reps_p)
-        t_k1 = time_ms(pk_fn, reps_k)
-        t_k2 = time_ms(pk_fn, reps_k)
-        t_p2 = time_ms(pp_fn, reps_p)
-        return (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2, (t_k1, t_k2, t_p1, t_p2)
-
     for kname, (label, (tables, v, eye, kw)) in timed.items():
         kern, plain = wrappers[kname]
         hold("timed", kname, label,
@@ -3186,6 +3416,9 @@ def main():
 
     # ---- 20. the cell scripts: depth sweep, reference frame, fit demo ----
     scripts_phase(dev, card, launches, errs, fracs)
+
+    # ---- 21. the look-at scanline of even-size frames against the oracle --
+    checker_edge_phase(dev, card, launches, errs, fracs)
 
     kernels = []
     for k in list(KERNEL_SOURCES) + list(BF16_ROWS):

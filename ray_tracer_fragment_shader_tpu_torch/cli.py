@@ -187,6 +187,9 @@ def cmd_fit(args):
     from .utils.checkpoint import save_checkpoint
     device = _device(args)
     scene, camcfg, cfg = presets.fit_target(size=args.size or 128)
+    # the JAX CLI's fit parses --no-prune and ignores it; here the core's
+    # multi-view fit honours it (the kernels never prune)
+    cfg = dataclasses.replace(cfg, prune=not args.no_prune)
     camera = Camera.from_config(camcfg, cfg.width, cfg.height, device=device)
     target = render_image_kernel(scene, camera, cfg, device=device)
 
@@ -290,6 +293,10 @@ def main(argv=None):
                         "(orbit cameras, multiscale, soft annealing)")
     p.add_argument("--span", type=float, default=90.0,
                    help="orbit azimuth span in degrees (--views > 1)")
+    p.add_argument("--no-prune", action="store_true",
+                   help="disable the core renderer's bounding-sphere "
+                        "pruning in the multi-view fit (--views > 1); the "
+                        "kernels never prune")
     p.add_argument("--out-dir", default=None)
     p.set_defaults(fn=cmd_fit)
 

@@ -100,7 +100,6 @@ def _node_math(geom, o, v, bik, midl, lits, atten: float):
     ndv = _dot(n_sel, v)
     m_par = safe_div(nv0_sel - _dot(n_sel, o), ndv,
                      torch.abs(ndv) > 0.0)
-    dist_tri = m_par * vlen
 
     c_sel = _take(geom["sph_center"], bik - nt, is_s)
     r_sel = _take(geom["sph_radius"], bik - nt, is_s)
@@ -109,8 +108,10 @@ def _node_math(geom, o, v, bik, midl, lits, atten: float):
     disc = ud * ud - _dot(d, d) + r_sel * r_sel
     dist_sph = ud - safe_sqrt(disc, disc > 0.0)
 
-    bd = torch.where(hitm, torch.where(is_tri, dist_tri, dist_sph), 0.0)
-    p = o + bd[:, None] * u
+    # a triangle's point is o + m*v, as the forwards form it
+    # (render.py::_PlainOps.hit_attrs), a sphere's o + s*u
+    k = torch.where(hitm, torch.where(is_tri, m_par, dist_sph), 0.0)
+    p = o + k[:, None] * torch.where(is_tri[:, None], v, u)
 
     d0 = p - c_sel
     d0sq = _dot(d0, d0)

@@ -56,7 +56,7 @@ struct NodeConst {
 
 // What the reverse sweep reads of one node's primal (the JAX `rec`).
 struct NodeRec {
-  float vx, vy, vz, ivl, vlen, ux, uy, uz;
+  float vx, vy, vz, ivl, ux, uy, uz;
   bool is_tri;
   float tnx, tny, tnz, inv_ndv, m_par;  // triangle hits
   bool ndv_ok;
@@ -78,8 +78,7 @@ __device__ __forceinline__ void node_primal(const Scene& s,
                                             bool want_snell, NodeRec* r) {
   r->vx = vx; r->vy = vy; r->vz = vz;
   const float vlen2 = vx * vx + vy * vy + vz * vz;
-  r->vlen = safe_sqrt(vlen2);
-  r->ivl = safe_recip(r->vlen);
+  r->ivl = safe_recip(safe_sqrt(vlen2));
   r->ux = vx * r->ivl; r->uy = vy * r->ivl; r->uz = vz * r->ivl;
   r->is_tri = c.bik < s.nt;
   if (r->is_tri) {
@@ -90,7 +89,6 @@ __device__ __forceinline__ void node_primal(const Scene& s,
     r->inv_ndv = 1.0f / (r->ndv_ok ? ndv : 1.0f);
     const float ndo = r->tnx * ox + r->tny * oy + r->tnz * oz;
     r->m_par = r->ndv_ok ? (t[16] - ndo) / ndv : 0.0f;
-    r->bd = r->m_par * r->vlen;
     r->cx = r->cy = r->cz = r->rr = 0.0f;
   } else {
     const float* sp = s.sph + (c.bik - s.nt) * SPH_COLS;
@@ -105,9 +103,12 @@ __device__ __forceinline__ void node_primal(const Scene& s,
     r->inv_sq = safe_recip(sq);
     r->bd = r->ud - sq;
   }
-  r->px = ox + r->bd * r->ux;
-  r->py = oy + r->bd * r->uy;
-  r->pz = oz + r->bd * r->uz;
+  // a triangle's point is o + m_par*v, as the forwards' (tile_ops.cuh::
+  // hit_attrs), a sphere's o + bd*u
+  const float k = r->is_tri ? r->m_par : r->bd;
+  r->px = ox + k * (r->is_tri ? vx : r->ux);
+  r->py = oy + k * (r->is_tri ? vy : r->uy);
+  r->pz = oz + k * (r->is_tri ? vz : r->uz);
   if (r->is_tri) {
     r->nx = r->tnx; r->ny = r->tny; r->nz = r->tnz;
   } else {
@@ -223,26 +224,19 @@ __device__ __forceinline__ void node_reverse(
   b.ux += b.cosi * r.nx; b.uy += b.cosi * r.ny; b.uz += b.cosi * r.nz;
   b.nx += b.cosi * r.ux; b.ny += b.cosi * r.uy; b.nz += b.cosi * r.uz;
 
-  float ox_b, oy_b, oz_b, vx_b = 0.0f, vy_b = 0.0f, vz_b = 0.0f;
+  float ox_b, oy_b, oz_b, vx_b, vy_b, vz_b;
   if (r.is_tri) {
-    // n = tn (a constant); p = o + bd*u
+    // n = tn (a constant); p = o + m_par*v
     ox_b = b.px; oy_b = b.py; oz_b = b.pz;
-    const float bd_b = b.px * r.ux + b.py * r.uy + b.pz * r.uz;
-    b.ux += r.bd * b.px; b.uy += r.bd * b.py; b.uz += r.bd * b.pz;
-    // bd = m_par * vlen; m_par = (tnv0 - tn.o) / ndv; ndv = tn.v
-    const float m_b = bd_b * r.vlen;
-    const float vlen_b0 = bd_b * r.m_par;
+    const float m_b = b.px * r.vx + b.py * r.vy + b.pz * r.vz;
+    vx_b = r.m_par * b.px; vy_b = r.m_par * b.py; vz_b = r.m_par * b.pz;
+    // m_par = (tnv0 - tn.o) / ndv; ndv = tn.v
     const float ndo_b = r.ndv_ok ? -m_b * r.inv_ndv : 0.0f;
     const float ndv_b = -r.m_par * r.inv_ndv * m_b;
     ox_b += ndo_b * r.tnx; oy_b += ndo_b * r.tny; oz_b += ndo_b * r.tnz;
-    vx_b = ndv_b * r.tnx; vy_b = ndv_b * r.tny; vz_b = ndv_b * r.tnz;
-    // u = v * ivl; vlen = vlen2 * ivl
+    vx_b += ndv_b * r.tnx; vy_b += ndv_b * r.tny; vz_b += ndv_b * r.tnz;
+    // u = v * ivl
     vx_b += b.ux * r.ivl; vy_b += b.uy * r.ivl; vz_b += b.uz * r.ivl;
-    const float ivl_b = b.ux * r.vx + b.uy * r.vy + b.uz * r.vz;
-    const float vlen_b = vlen_b0 - r.ivl * r.ivl * ivl_b;
-    const float two_vlen2_b = 2.0f * (0.5f * vlen_b * r.ivl);
-    vx_b += two_vlen2_b * r.vx; vy_b += two_vlen2_b * r.vy;
-    vz_b += two_vlen2_b * r.vz;
   } else {
     // n = d0 * inv_d0; inv_d0 = d0sq^-1/2; d0 = p - c
     const float invd0_b = b.nx * r.d0x + b.ny * r.d0y + b.nz * r.d0z;
@@ -269,14 +263,15 @@ __device__ __forceinline__ void node_reverse(
     c_bx += d_bx; c_by += d_by; c_bz += d_bz;
     ox_b -= d_bx; oy_b -= d_by; oz_b -= d_bz;
     d_sph[0] += c_bx; d_sph[1] += c_by; d_sph[2] += c_bz;
-    // u = v * ivl; vlen = vlen2 * ivl (vlen feeds only triangle hits)
+    // u = v * ivl
     vx_b = b.ux * r.ivl; vy_b = b.uy * r.ivl; vz_b = b.uz * r.ivl;
-    const float ivl_b = b.ux * r.vx + b.uy * r.vy + b.uz * r.vz;
-    const float vlen_b = -r.ivl * r.ivl * ivl_b;
-    const float two_vlen2_b = 2.0f * (0.5f * vlen_b * r.ivl);
-    vx_b += two_vlen2_b * r.vx; vy_b += two_vlen2_b * r.vy;
-    vz_b += two_vlen2_b * r.vz;
   }
+  // ivl = 1/sqrt(vlen2)
+  const float ivl_b = b.ux * r.vx + b.uy * r.vy + b.uz * r.vz;
+  const float vlen_b = -r.ivl * r.ivl * ivl_b;
+  const float two_vlen2_b = 2.0f * (0.5f * vlen_b * r.ivl);
+  vx_b += two_vlen2_b * r.vx; vy_b += two_vlen2_b * r.vy;
+  vz_b += two_vlen2_b * r.vz;
   *obx = ox_b; *oby = oy_b; *obz = oz_b;
   *vbx = vx_b; *vby = vy_b; *vbz = vz_b;
 }

@@ -342,10 +342,18 @@ struct Surf {
 // The TPU blended attributes over every primitive by mask; here the winner's
 // row is loaded directly.  On a miss (bi = -1) the result is what the blend
 // gives: is_tri is true, the normal is zero, mid is 0 (no checker override).
+// A triangle's point is o + mm*v, as the core and the oracle form it
+// (ops/intersect.py), with the winner's mm recomputed from its row in
+// tri_hit's order, so it equals the sweep's bit for bit and the sweep keeps
+// no extra register.  Formed as o + bd*u (bd = mm*|v|, u = v*rsqrt(|v|^2))
+// it rounds off the plane, and a ray that meets the board on a checker
+// edge (the look-at point of an even-height frame) lands in the
+// neighbouring square.  A sphere's point is o + bd*u.
 __device__ __forceinline__ Surf hit_attrs(const Scene& s, float bd, int bi,
                                           bool hitm, float ox, float oy,
-                                          float oz, const Ray& r) {
-  float tnx = 0.0f, tny = 0.0f, tnz = 0.0f, tchk = 0.0f;
+                                          float oz, float vx, float vy,
+                                          float vz, const Ray& r) {
+  float tnx = 0.0f, tny = 0.0f, tnz = 0.0f, tchk = 0.0f, mm = 0.0f;
   float scx = 0.0f, scy = 0.0f, scz = 0.0f;
   int tmid = 0, smid = 0;
   if (bi >= 0 && bi < s.nt) {
@@ -353,6 +361,10 @@ __device__ __forceinline__ Surf hit_attrs(const Scene& s, float bd, int bi,
     tnx = t[3]; tny = t[4]; tnz = t[5];
     tmid = static_cast<int>(t[17]);
     tchk = t[18];
+    // the winner passed tri_hit's plane test, so its ndv is the divisor
+    const float ndv = t[3] * vx + t[4] * vy + t[5] * vz;
+    const float ndo = t[3] * ox + t[4] * oy + t[5] * oz;
+    mm = (t[16] - ndo) * (1.0f / ndv);
   } else if (bi >= s.nt) {
     const float* c = s.sph + (bi - s.nt) * SPH_COLS;
     scx = c[0]; scy = c[1]; scz = c[2];
@@ -360,11 +372,10 @@ __device__ __forceinline__ Surf hit_attrs(const Scene& s, float bd, int bi,
   }
   const bool is_tri = bi < s.nt;
   Surf f;
-  // bd is the Euclidean distance for both kinds: point = o + bd * u
-  const float bd_safe = hitm ? bd : 0.0f;
-  f.px = ox + bd_safe * r.ux;
-  f.py = oy + bd_safe * r.uy;
-  f.pz = oz + bd_safe * r.uz;
+  const float k = hitm ? (is_tri ? mm : bd) : 0.0f;
+  f.px = ox + k * (is_tri ? vx : r.ux);
+  f.py = oy + k * (is_tri ? vy : r.uy);
+  f.pz = oz + k * (is_tri ? vz : r.uz);
   const float d0x = f.px - scx, d0y = f.py - scy, d0z = f.pz - scz;
   const float d0sq = d0x * d0x + d0y * d0y + d0z * d0z;
   const float inv_d0 = rsqrtf(d0sq > 0.0f ? d0sq : 1.0f);
@@ -488,7 +499,7 @@ __device__ __forceinline__ bool trace_node(const Scene& s, float ox, float oy,
                            nullptr);
   const bool hitm = bd < BIG;
   if (!hitm) return false;
-  *f = hit_attrs(s, bd, *bi, hitm, ox, oy, oz, r);
+  *f = hit_attrs(s, bd, *bi, hitm, ox, oy, oz, vx, vy, vz, r);
   *mt = s.mat + f->mid * MAT_COLS;
   *d = secondary_dirs<WANT_TRANS>(r, *f, (*mt)[12]);
   *lit_bits =

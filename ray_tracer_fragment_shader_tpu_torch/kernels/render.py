@@ -324,9 +324,10 @@ class _PlainOps:
 
     def intersect_all(self, ox, oy, oz, vx, vy, vz, excl, ray_ok,
                       carry_transp=False, any_hit=False):
-        """Closest hit, triangles first with strict < — (bd, bi, ux, uy, uz)
-        — or with ``carry_transp`` (bd, winner's transparency flag), or
-        with ``any_hit`` only the occluded mask."""
+        """Closest hit, triangles first with strict < — (bd, bi, mm, ux, uy,
+        uz), ``mm`` the winning triangle's plane parameter — or with
+        ``carry_transp`` (bd, winner's transparency flag), or with
+        ``any_hit`` only the occluded mask."""
         vlen2 = vx * vx + vy * vy + vz * vz
         ok = ray_ok & (vlen2 > 0.0)
         inv_vlen = torch.rsqrt(torch.where(ok, vlen2, 1.0))
@@ -353,13 +354,15 @@ class _PlainOps:
                 occ = occ | self._sph_hit(i, ox, oy, oz, ux, uy, uz, ok,
                                           excl)[0]
             return occ
-        bd, bi = self.full(BIG), self.full(-1.0)
+        bd, bi, bm = self.full(BIG), self.full(-1.0), self.full(0.0)
         for i in tris:
             hit, mm = self._tri_hit(i, ox, oy, oz, vx, vy, vz, ok, excl)
             dist = torch.where(hit, mm * vlen, BIG)
             upd = dist < bd
             win = self.tri[i][20] if carry_transp else float(i)
             bd, bi = torch.where(upd, dist, bd), torch.where(upd, win, bi)
+            if not carry_transp:
+                bm = torch.where(upd, mm, bm)
         for i in sphs:
             hit, s = self._sph_hit(i, ox, oy, oz, ux, uy, uz, ok, excl)
             dist = torch.where(hit, s, BIG)
@@ -368,12 +371,17 @@ class _PlainOps:
             bd, bi = torch.where(upd, dist, bd), torch.where(upd, win, bi)
         if carry_transp:
             return bd, bi
-        return bd, bi, ux, uy, uz
+        return bd, bi, bm, ux, uy, uz
 
-    def hit_attrs(self, bd, bi, hitm, ox, oy, oz, ux, uy, uz):
+    def hit_attrs(self, bd, bi, mm, hitm, ox, oy, oz, vx, vy, vz, ux, uy,
+                  uz):
         """Hit point, shading normal and material id (checker override) of
         the winning primitive, loaded by id.  A miss (bi = -1) gives what
-        the TPU kernel's mask blend gives: zero normal, material 0."""
+        the TPU kernel's mask blend gives: zero normal, material 0.  A
+        triangle's point is o + mm*v (the core's and the oracle's; through
+        bd*u it rounds off the plane, and a ray meeting the board on a
+        checker edge lands in the neighbouring square), a sphere's
+        o + bd*u (csrc/tile_ops.cuh::hit_attrs)."""
         nt = self.nt
         is_t = (bi >= 0.0) & (bi < nt)
         is_s = bi >= nt
@@ -384,10 +392,10 @@ class _PlainOps:
         scx, scy, scz, smid = torch.where(is_s[:, None], srow, 0.0).unbind(1)
 
         is_tri = bi < nt
-        bd_safe = torch.where(hitm, bd, 0.0)
-        px = ox + bd_safe * ux
-        py = oy + bd_safe * uy
-        pz = oz + bd_safe * uz
+        k = torch.where(hitm, torch.where(is_tri, mm, bd), 0.0)
+        px = ox + k * torch.where(is_tri, vx, ux)
+        py = oy + k * torch.where(is_tri, vy, uy)
+        pz = oz + k * torch.where(is_tri, vz, uz)
         d0x, d0y, d0z = px - scx, py - scy, pz - scz
         d0sq = d0x * d0x + d0y * d0y + d0z * d0z
         inv_d0 = torch.rsqrt(torch.where(d0sq > 0.0, d0sq, 1.0))
@@ -486,11 +494,11 @@ class _PlainOps:
         """One bounce level/node: closest hit, attributes, secondary
         directions and shading.  Returns (hitm, bi, p, mats, dirs, col,
         mid); ``lits`` as in ``shade``."""
-        bd, bi, ux, uy, uz = self.intersect_all(ox, oy, oz, vx, vy, vz,
-                                                excl, alive)
+        bd, bi, mm, ux, uy, uz = self.intersect_all(ox, oy, oz, vx, vy, vz,
+                                                    excl, alive)
         hitm = (bd < BIG) & alive
-        px, py, pz, nx, ny, nz, mid = self.hit_attrs(bd, bi, hitm, ox, oy,
-                                                     oz, ux, uy, uz)
+        px, py, pz, nx, ny, nz, mid = self.hit_attrs(
+            bd, bi, mm, hitm, ox, oy, oz, vx, vy, vz, ux, uy, uz)
         mats = self.mat_attrs(mid)
         dirs = self.secondary_dirs(ux, uy, uz, nx, ny, nz, mats[:, 12],
                                    want_trans=want_trans)

@@ -11,11 +11,14 @@ the FlatScene data, not code paths.
 The JAX package's ``oracle/numpy_ref.py``, line for line, reading the
 port's ``FlatScene`` (torch tensors, on any device) instead of JAX's: it
 imports numpy and the port's config only, so it runs where there is no JAX
-(the card's machine; ``grad_bar.py``).
+(the card's machine; ``grad_bar.py``).  It adds ``oracle_pixels`` and
+``trace_ray``'s walk of the later bounces that meet the board on a
+checker square's edge, where a float32 render may take either square.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Optional
 
@@ -112,6 +115,7 @@ class OracleHit:
     mat_id: int
     refl_dir: np.ndarray
     trans_dir: np.ndarray
+    checker: bool = False  # a board triangle's (its material by square)
 
 
 def _intersect(sc: OracleScene, o: np.ndarray, v: np.ndarray, small: float,
@@ -166,6 +170,7 @@ def _intersect(sc: OracleScene, o: np.ndarray, v: np.ndarray, small: float,
                 sq = int(px / sc.board_square) + int(pz / sc.board_square)
                 mat_id = sc.checker_mats[0] if sq % 2 == 0 else sc.checker_mats[1]
             best = _finish(sc, p, n, mat_id, u)
+            best.checker = bool(sc.tri_checker[i])
 
     for i in range(len(sc.sph_mat)):
         if pruned[sc.sph_group[i]]:
@@ -201,9 +206,31 @@ def _finish(sc: OracleScene, p, n, mat_id: int, u) -> OracleHit:
                      trans_dir=trans)
 
 
+#: how close to a square's edge (in squares) a board hit counts as on it
+EDGE_TOL = 1e-6
+
+
+def on_checker_edge(sc: OracleScene, hit: OracleHit) -> bool:
+    """Whether ``hit`` meets the board within ``EDGE_TOL`` squares of a
+    square's edge: there the square turns on the last bits of the ray that
+    found it, in float32 as in float64."""
+    if not hit.checker:
+        return False
+    q = (hit.point - sc.board_pos + sc.board_half) / sc.board_square
+    return bool(np.min(np.abs(q[[0, 2]] - np.round(q[[0, 2]]))) < EDGE_TOL)
+
+
 def trace_ray(sc: OracleScene, o, v, depth: int, small: float = 1e-4,
-              attenuation_factor: float = 1e5, prune: bool = True) -> np.ndarray:
-    """Recursive single-ray trace, the ``rayTraceRay`` stack (SURVEY.md 3.3)."""
+              attenuation_factor: float = 1e5, prune: bool = True, *,
+              edges: Optional[list] = None, flip=frozenset(),
+              path: tuple = ()) -> np.ndarray:
+    """Recursive single-ray trace, the ``rayTraceRay`` stack (SURVEY.md 3.3).
+
+    A bounce is named by its ``path`` from the primary hit, one ``"t"``
+    (transmitted) or ``"r"`` (reflected) a level.  ``edges``, a list, takes
+    the path of every bounce after the primary hit that meets the board on
+    a square's edge (``on_checker_edge``); the bounces named in ``flip``
+    take the other square's material there."""
     color = np.zeros(3)
     hit = _intersect(sc, np.asarray(o, np.float64), np.asarray(v, np.float64),
                      small, prune)
@@ -212,6 +239,13 @@ def trace_ray(sc: OracleScene, o, v, depth: int, small: float = 1e-4,
 
     vlen = np.linalg.norm(v)
     u = v / vlen
+    if path and (edges is not None or flip) and on_checker_edge(sc, hit):
+        if edges is not None:
+            edges.append(path)
+        if path in flip:
+            a, b = sc.checker_mats
+            hit = _finish(sc, hit.point, hit.normal,
+                          b if hit.mat_id == a else a, u)
     for l in range(len(sc.light_pos)):
         sv = sc.light_pos[l] - hit.point
         occ = _intersect(sc, hit.point, sv, small, prune)
@@ -232,13 +266,28 @@ def trace_ray(sc: OracleScene, o, v, depth: int, small: float = 1e-4,
         opacity = 1.0 - T
         if np.any(T != 0.0) and np.linalg.norm(T) > small:
             ct = trace_ray(sc, hit.point, hit.trans_dir, depth - 1, small,
-                           attenuation_factor, prune)
+                           attenuation_factor, prune, edges=edges, flip=flip,
+                           path=path + ("t",))
             color += T * ct
         if np.any(opacity != 0.0):
             cr = trace_ray(sc, hit.point, hit.refl_dir, depth - 1, small,
-                           attenuation_factor, prune)
+                           attenuation_factor, prune, edges=edges, flip=flip,
+                           path=path + ("r",))
             color += opacity * cr
     return color
+
+
+def _screen(camera: CameraConfig, w: int, h: int):
+    """(eye, base, right, up2) of the reference's screen in float64: pixel
+    (j, i) looks through base + (i*scale)*right + (j*scale)*up2."""
+    eye = np.asarray(camera.eye, np.float64)
+    look_at = np.asarray(camera.look_at, np.float64)
+    up = np.asarray(camera.up, np.float64)
+    look = look_at - eye
+    right = np.cross(look, up); right /= np.linalg.norm(right)
+    up2 = np.cross(right, look); up2 /= np.linalg.norm(up2)
+    bx, by = camera.bottom(w, h)
+    return eye, look_at + bx * right + by * up2, right, up2
 
 
 def oracle_render(scene: FlatScene, camera: CameraConfig, config: RenderConfig,
@@ -248,16 +297,8 @@ def oracle_render(scene: FlatScene, camera: CameraConfig, config: RenderConfig,
     reference supersampler."""
     sc = OracleScene.from_flat(scene, dtype=dtype, small=config.small_number)
     w, h = config.width, config.height
-    eye = np.asarray(camera.eye, np.float64)
-    look_at = np.asarray(camera.look_at, np.float64)
-    up = np.asarray(camera.up, np.float64)
-    look = look_at - eye
-    right = np.cross(look, up); right /= np.linalg.norm(right)
-    up2 = np.cross(right, look); up2 /= np.linalg.norm(up2)
-    bx, by = camera.bottom(w, h)
-    base = look_at + bx * right + by * up2
+    eye, base, right, up2 = _screen(camera, w, h)
     scale = camera.pixel_scale
-
     img = np.zeros((h, w, 3))
     for j in range(h):
         for i in range(w):
@@ -266,3 +307,36 @@ def oracle_render(scene: FlatScene, camera: CameraConfig, config: RenderConfig,
                                   config.small_number,
                                   config.attenuation_factor, config.prune)
     return img
+
+
+def oracle_pixels(scene: FlatScene, camera: CameraConfig,
+                  config: RenderConfig, pixels, ties: bool = False):
+    """Pixels ``[(j, i), ...]`` of the frame, traced as ``oracle_render``
+    traces them: ``(colours [N,3] float64, primary hits)``, each hit an
+    ``OracleHit`` or None on a miss.  With ``ties``, also each pixel's
+    other colours [A,3]: one for each nonempty set of its later bounces
+    that meet the board on a square's edge, traced with those bounces on
+    the other square (A = 0 where no bounce does); a float32 render may
+    take any of them."""
+    sc = OracleScene.from_flat(scene, small=config.small_number)
+    eye, base, right, up2 = _screen(camera, config.width, config.height)
+    scale = camera.pixel_scale
+    args = (config.max_depth, config.small_number, config.attenuation_factor,
+            config.prune)
+    colours, hits, others = [], [], []
+    for j, i in pixels:
+        v = base + (i * scale) * right + (j * scale) * up2 - eye
+        edges = [] if ties else None
+        colours.append(trace_ray(sc, eye, v, *args, edges=edges))
+        hits.append(_intersect(sc, eye, v, config.small_number,
+                               config.prune))
+        if ties:
+            sets = itertools.chain.from_iterable(
+                itertools.combinations(edges, k)
+                for k in range(1, len(edges) + 1))
+            others.append(np.asarray(
+                [trace_ray(sc, eye, v, *args, flip=frozenset(f))
+                 for f in sets]).reshape(-1, 3))
+    if ties:
+        return np.stack(colours), hits, others
+    return np.stack(colours), hits

@@ -12,7 +12,11 @@ replaying the kernels' control flow with their plain versions: node
 visits, primitive tests per closest-hit sweep (the excluded origin
 primitive skipped), shadow-sweep tests up to the first occluder for the
 any-hit sweep, lit lights, hit levels and pixels with a nonzero cotangent
-in the adjoint.  Bytes count each input that the function needs read once
+in the adjoint.  Work that a kernel does beyond what the function needs
+is its own overhead, left out so that it shows as a lower share:
+``hit_attrs`` recomputes a triangle winner's plane parameter (12 + - *
+and a division a triangle hit) that the sweep already formed, to keep no
+register live across the sweep.  Bytes count each input that the function needs read once
 (in the adjoint: a ray and residual levels only where the cotangent is
 nonzero) and each output written once.  The bound is the larger of
 ops / 67 TFLOP/s (the bf16 operations at twice that) and bytes / 3.35 TB/s
@@ -74,12 +78,12 @@ SWEEP_CAST_BF16 = 9    # occluded_any<true>: the ray cast once per sweep
 # --- adjoint_ops.cuh / adjoint_packed.cu -----------------------------------
 PROLOGUE = 15        # cotangent and squared-error term, per pixel
 PRIMAL = 29          # node_primal, common part
-PRIMAL_TRI = 14      # node_primal, triangle hit
+PRIMAL_TRI = 13      # node_primal, triangle hit
 PRIMAL_SPH = 31      # node_primal, sphere hit (distance and normal)
 PRIMAL_SNELL = 19    # node_primal, transmitted direction
 REV_LIGHT = 124      # node_reverse, one lit light
 REV_TAIL = 28        # node_reverse, reflection and cosi adjoints
-REV_TRI = 49         # node_reverse, triangle hit
+REV_TRI = 47         # node_reverse, triangle hit
 REV_SPH = 96         # node_reverse, sphere hit
 REV_SNELL = 22       # snell_reverse
 SCATTER = 13         # one hit level's sphere and material sums
@@ -95,8 +99,8 @@ CLASSES = {
     "SPH_TEST": dict(basic=18, sqrt=1, cmp=5, select=1),
     "RAY_SETUP": dict(basic=9, rsqrt=1, cmp=1, select=1),
     # rsqrtf of the normal, three truncf of the checker parity, the
-    # hit/kind/checker selects of the normal and the material
-    "HIT_ATTRS": dict(basic=26, rsqrt=1, cmp=7, select=11, floor=3),
+    # hit/kind/checker selects of the point, the normal and the material
+    "HIT_ATTRS": dict(basic=26, rsqrt=1, cmp=7, select=15, floor=3),
     "DIRS": dict(basic=14),
     "SNELL": dict(basic=19, sqrt=1, cmp=1, select=2),
     # its ray_setup, the attenuation's division, 1/|sv|, two fabsf
@@ -120,14 +124,14 @@ CLASSES = {
     "PROLOGUE": dict(basic=15, cmp=3),
     # safe_sqrt(|v|^2), safe_recip(|v|), the kind compare
     "PRIMAL": dict(basic=27, sqrt=1, div=1, cmp=3, select=2),
-    "PRIMAL_TRI": dict(basic=12, div=2, cmp=1, select=2, abs=1),
+    "PRIMAL_TRI": dict(basic=11, div=2, cmp=1, select=2, abs=1),
     "PRIMAL_SPH": dict(basic=27, sqrt=2, div=2, cmp=4, select=3),
     "PRIMAL_SNELL": dict(basic=17, sqrt=1, div=1, cmp=3, select=3),
     # inv_sqrt(d2), 1/(atten+d2), two sgn (2 compares and a select each),
     # the lit bit, two fabsf
     "REV_LIGHT": dict(basic=121, sqrt=1, div=2, cmp=6, select=3, abs=2),
     "REV_TAIL": dict(basic=28),
-    "REV_TRI": dict(basic=49, select=1),
+    "REV_TRI": dict(basic=47, select=1),
     "REV_SPH": dict(basic=96, select=1),
     "REV_SNELL": dict(basic=22),
     # the sums, and the record's sphere and material matches

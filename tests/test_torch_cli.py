@@ -115,6 +115,60 @@ def test_no_gpu_without_cpu_flag_raises(tmp_path, monkeypatch, cmd):
     assert not (tmp_path / "x.ppm").exists()
 
 
+@pytest.mark.parametrize("no_prune", [False, True], ids=["prune",
+                                                         "no-prune"])
+@pytest.mark.parametrize("cmd", ["render", "interactive", "fit"])
+def test_no_prune_reaches_the_config(tmp_path, monkeypatch, cmd, no_prune):
+    """``fit --views 2 --no-prune`` renders the core's multi-view targets
+    with ``RenderConfig.prune`` False, so the bounding-sphere prune mask is
+    never formed (JAX cli.py:38-39, 62, 164 give the flag that meaning;
+    JAX's fit parses it and ignores it).  ``render`` and ``interactive``
+    run only the kernels, which never prune: they keep the default and
+    refuse the flag rather than take it as a no-op."""
+    from ray_tracer_fragment_shader_tpu_torch.diff import multiview
+    from ray_tracer_fragment_shader_tpu_torch.ops import intersect
+    got = {"masks": 0}
+
+    class Stop(Exception):
+        pass
+
+    real_mask, real_views = intersect.group_prune_mask, multiview.render_views
+
+    def mask(*a, **kw):
+        got["masks"] += 1
+        return real_mask(*a, **kw)
+
+    def views(scene, cams, cfg, **kw):
+        got["cfg"] = cfg
+        got["targets"] = real_views(scene, cams, cfg, **kw)
+        raise Stop
+
+    def capture(scene, cam, cfg, *rest, **kw):
+        got["cfg"] = cfg
+        raise Stop
+
+    monkeypatch.setattr(intersect, "group_prune_mask", mask)
+    monkeypatch.setattr(tcli, "_render_and_write", capture)
+    monkeypatch.setattr(multiview, "render_views", views)
+    monkeypatch.setattr("sys.stdin", io.StringIO(MENU_FEED))
+    argv = {"render": ["render", "--preset", "full_reflective"],
+            "interactive": ["interactive"],
+            "fit": ["fit", "--views", "2"]}[cmd]
+    argv += ["--size", "16", "--cpu", "--out", str(tmp_path / "x.ppm")]
+    if cmd != "fit" and no_prune:
+        with pytest.raises(SystemExit):
+            tcli.main(argv + ["--no-prune"])
+        assert "cfg" not in got
+        return
+    with pytest.raises(Stop):
+        tcli.main(argv + (["--no-prune"] if no_prune else []))
+    assert got["cfg"].prune is not no_prune
+    if cmd == "fit":
+        assert got["targets"].shape == (2, 16, 16, 3)
+        assert bool(torch.isfinite(got["targets"]).all())
+        assert (got["masks"] > 0) is not no_prune
+
+
 def test_unknown_preset_rejected():
     with pytest.raises(SystemExit):
         tcli.main(["render", "--preset", "nope", "--cpu"])

@@ -203,11 +203,16 @@ def test_core_gradients_match_the_replay_where_topology_agrees():
     tests/test_adjoint.py:47-49's 5e-3 for the geometry and 3e-2 for the
     rest, as chip_smoke.py's phase 18 holds the card's 1024^2 frame.
     Printed (measured: the sphere centres part by 0.317 of max
-    unrestricted, the checker-edge scanline, 0.18 % of the frame, taking
-    the other square in each; by 0.00288 on the same topology, all from one
-    ill-conditioned pixel, an inter-reflection between two spheres whose
-    colours part by 1.1e-3 and which alone carries 0.79 of the held centre
-    table's max; by 0.000679 without it)."""
+    unrestricted, from the 2 of 16,384 pixels where the two forwards take
+    another topology, (64, 100) on the look-at row and (74, 91): there the
+    core's colour leaves the f64 oracle by 0.87 and 0.48 and the kernel
+    path's is within 3.7e-5 of it (before the kernel path formed a
+    triangle's hit point as the core does, o + m*v, the checker-edge
+    scanline, 0.18 % of the frame, took the other square too); by 0.00287
+    on the same topology, all from one ill-conditioned pixel, an
+    inter-reflection between two spheres whose colours part by 1.1e-3 and
+    which alone carries 0.79 of the held centre table's max; by 0.000673
+    without it)."""
     n = 128
     scene, cam, cfg = tpresets.full_reflective(size=n, depth=3)
     camera = Camera.from_config(cam, n, n)

@@ -26,7 +26,13 @@ _PlainOps) and the core's part by up to 5e-4 on a pixel of the moved
 scene with no pixel changing topology, and the loss and tables part with
 them: over odd sizes 13-25 at most 4.3e-4 relative (loss, 15^2) and
 9.6e-4 of max (tables, 21^2).  So this comparison holds the loss within
-1e-3 relative and each table within 2e-3 of max|JAX|.
+1e-3 relative and each table within 2e-3 of max|JAX|.  It runs at 16^2,
+an even size: the middle row's rays meet the board on a checker square's
+edge, where the kernel path forms a triangle's hit point as the core
+does, o + m*v (measured at 16^2: 0 pixels over 1e-3, the loss within
+4.6e-6 relative, the tables within 1.3e-4 of max; with the point formed
+as o + |v|*m*u the two images part on 1.6 % and 2.0 % of the pixels and
+the loss by 0.68 relative).
 """
 import dataclasses
 import json

@@ -9,8 +9,11 @@ Here the wrappers run their plain versions.  The JAX side runs its Pallas
 kernels in interpret mode once per function, at 33², depth 1, from one
 module-scoped fixture (the residual forward and ``fit_grads_pallas``;
 33, not 32: at an even size the middle scanline passes through the look-at
-point, on a checker edge, where the two renders' last-bit rounding picks
-either square);
+point, on a checker edge, where JAX's own kernel, which forms a triangle's
+hit point as o + |v|*m*u, leaves the f64 oracle: 2 of the 32 pixels of
+that row of ``fit_target`` at 32^2, where the port's forwards, forming it
+as o + m*v, equal the oracle; tests/test_torch_checker_edge.py holds the
+port at even sizes against the oracle and the JAX core);
 everything else is held against its XLA replays
 (kernels/adjoint.py::replay_render, replay_render_tree) and its oracle.
 

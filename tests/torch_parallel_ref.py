@@ -26,8 +26,11 @@ BAND_SPLITS = ((1024, 3), (20, 8), (35, 8), (32, 8), (1, 4))
 PIXEL_INDEX = ((27, 35, 8), (24, 40, 8), (5, 3, 4))
 #: the band step's frame (width, height) on fit_target's 16^2 camera, and
 #: its devices.  13 rows, not 16: at an even height the middle row's rays
-#: meet the floor exactly on a checker edge, where the port's and JAX's
-#: forwards round to different squares (4-5 pixels at 16^2)
+#: meet the floor exactly on a checker edge, where JAX's Pallas kernel
+#: (interpret mode here) forms a triangle's hit point as o + |v|*m*u and
+#: picks a square by its last bits (2 of 32 pixels off the f64 oracle at
+#: fit_target 32^2, none at 16^2), while the port's forms it as o + m*v
+#: and equals the oracle (tests/test_torch_checker_edge.py)
 BAND_STEP_SHAPE, BAND_STEP_WORLD = (16, 13), 3
 FIT_FIELDS = ("sph_center", "sph_radius", "light_pos", "mat_diffuse",
               "mat_specular", "mat_ambient")

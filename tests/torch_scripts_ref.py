@@ -26,9 +26,9 @@ from ray_tracer_fragment_shader_tpu.scene import Material as JMaterial
 from ray_tracer_fragment_shader_tpu.scene import SceneBuilder as JBuilder
 from ray_tracer_fragment_shader_tpu.scene import presets as jpresets
 
-#: odd, so no primary ray meets the board on a square's edge (the
-#: checker-edge tie, PERF.md section 7)
-SIZE = 15
+#: even: the middle row's rays meet the board on a checker square's edge,
+#: where the kernel path's hit point must equal the core's (o + m*v)
+SIZE = 16
 MOVE = 1.5
 SEED = 3
 FIELDS = ("sph_center", "sph_radius", "light_pos", "mat_diffuse",
