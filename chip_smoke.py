@@ -106,17 +106,22 @@ Phases (each raises on failure; the script then exits non-zero):
    forward at fractional_glass 1024^2 d3 (at most four K9 schedules), K9's
    libraries for them and P3's, P1's and P2's built at once with
    -fmad=false, their registers and spills (ptxas) and the SASS opcodes of
-   P1's mul, add and mix (no FFMA); K9 on each blend, P1's 14 classes and
-   P2's mul and mix in f32 and bf16 against their plain versions at two
-   tiles and 8 iterations, twice bit-identical (f32 within 1e-5 of
-   max|plain|, bf16 2^-7); K9's rate for each blend and the P1 mul rate,
-   each at most 1.05 of SMs x 128 x the SM clock sampled during the run;
-   with the launch counters zeroed just before each: ``bench.main`` at
-   config 3 (``vs_baseline`` in (0, 1.05]), P1 and P2 at 64 iterations,
-   P3 over 2, 8, 32 and 96 chains; the probes' times against their plain
-   versions; and each render and fit kernel's bound at K9's rate for its
-   family's blend (``k9_bound_ms`` in the ``kernels`` line, the larger of
-   that and its bytes' time).
+   P1's mul, add and mix (no FFMA); P2's SASS census (what one chain step
+   of each hot loop issues, by pipe: the bf16 mul one packed multiply,
+   some on HFMA2.MMA; the bf16 mix 8 packed, 2 MUFU, 1 pack and no FP32
+   arithmetic but rsqrtf's rescale, at most 2 a MUFU); K9 on each blend and P1's 14 classes against their plain
+   versions at two tiles and 8 iterations, twice bit-identical (f32 within
+   1e-5 of max|plain|), every P2 instantiation (mul and mix, f32 and bf16,
+   each chain count) bit-identical to its plain version; K9's rate for
+   each blend and the P1 mul rate, each at most 1.05 of SMs x 128 x the SM
+   clock sampled during the run; with the launch counters zeroed just
+   before each: ``bench.main`` at config 3 (``vs_baseline`` in (0, 1.05]),
+   P1 and P2 at 64 iterations (P2's bf16/f32 speedups and each row's share
+   of its bound), P3 over 2, 8, 32 and 96 chains; the probes' times against
+   their plain versions (P2's bf16 mix and mul against bounds priced pipe
+   by pipe, ``probes/common.py::chain_step_bound``); and each render and
+   fit kernel's bound at K9's rate for its family's blend (``k9_bound_ms``
+   in the ``kernels`` line, the larger of that and its bytes' time).
 14. ``bf16_shading`` and the unpacked K6/K7 (``bf16_phase``): K6/K7's
    local memory per tree depth cap (ptxas) and what it reserves for the
    card's resident threads; the SASS census of the library's bf16 HFMA2
@@ -560,13 +565,9 @@ def bf16_fma_census(library: str):
     once as the operation does.  A fused one would round a product and a
     sum once together, as JAX's per-op bf16 does not."""
     import re
-    from torch.utils.cpp_extension import CUDA_HOME
-    res = subprocess.run([os.path.join(CUDA_HOME or "", "bin", "cuobjdump"),
-                          "-sass", library], capture_output=True, text=True,
-                         timeout=300)
-    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[:2000]}")
+    from ray_tracer_fragment_shader_tpu_torch.kernels.probe import sass_text
     out = {"mul": 0, "add": 0, "fused": 0, "fused_lines": []}
-    for line in res.stdout.splitlines():
+    for line in sass_text(library).splitlines():
         m = re.search(r"HFMA2[.A-Z0-9_]*BF16[.A-Z0-9_]*\s+([^;]*);", line)
         if not m:
             continue
@@ -899,8 +900,12 @@ def bf16_phase(dev, card, launches, errs, fracs, times, bounds, k9):
         check(c > 0, f"the bf16 path never launched {k}")
     launches.update({k: bf16_launches[k] for k in BF16_ROWS})
 
-    # -- times at full width, with bounds: data sheet and K9's rate for the
-    # f32 kernel's blend (bf16 priced as f32: P2 found it no faster)
+    # -- times at full width, with bounds: data sheet (bf16 + - * at twice
+    # the FP32 rate, which the card reaches only on packed pairs split
+    # between the FMA pipe and HFMA2.MMA) and K9's rate for the f32
+    # kernel's blend, bf16 priced as f32: these kernels' scalar bf16 ops
+    # and packed pairs on the FMA pipe alone issue no faster per element
+    # than FP32 (P2, csrc/bf16_probe.cu)
     def four_times(pk_fn, pp_fn, reps_k, reps_p):
         t_p1 = time_ms(pp_fn, reps_p)
         t_k1, t_k2 = time_ms(pk_fn, reps_k), time_ms(pk_fn, reps_k)
@@ -2358,6 +2363,34 @@ def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
     print("  SASS mix_kernel<nc=2> (two-phase blend; IEEE div/sqrt "
           "sequences hold their own FFMA): " + " ".join(
               f"{k} {v}" for k, v in sorted(sass[(2,)].items())))
+    # P2's census: what one chain step of each hot loop issues, by pipe
+    census = bf16_probe.census()
+    for key in (f"{i} {t} nc16" for i in PR.BF16_INJECTS
+                for t in ("f32", "bf16")):
+        c = census[key]
+        print(f"  SASS census bf16_probe {key} a step: issue "
+              f"{c['issue']:.3f}; " + " ".join(
+                  f"{k} {v:.3f}" for k, v in c["pipes"].items())
+              + "; issue at nc " + " ".join(
+                  f"{k.split()[-1][2:]}:{v['issue']:.3f}"
+                  for k, v in census.items()
+                  if k.startswith(key.rsplit(" ", 1)[0] + " ")))
+    for nc in PR.BF16_NCS:
+        mul, mix = census[f"mul bf16 nc{nc}"], census[f"mix bf16 nc{nc}"]
+        packed = (mul["pipes"].get("fp16x2", 0)
+                  + mul["pipes"].get("fp16x2_mma", 0))
+        check(abs(packed - 1.0) < 1e-9 and "fp32" not in mul["pipes"],
+              f"bf16 mul nc {nc}: not one packed multiply a step {mul}")
+        check(mul["pipes"].get("fp16x2_mma", 0) > 0,
+              f"bf16 mul nc {nc}: nothing on HFMA2.MMA {mul}")
+        p = mix["pipes"]
+        check(p.get("fp32", 0) <= 4 + 1e-9
+              and abs(p.get("mufu", 0) - 2) < 1e-9
+              and abs(p.get("conv", 0) - 1) < 1e-9
+              and abs(p.get("fp16x2", 0) + p.get("fp16x2_mma", 0) - 8)
+              < 1e-9,
+              f"bf16 mix nc {nc}: not 8 packed, 2 MUFU, 1 pack and no "
+              f"unpacked arithmetic but rsqrtf's rescale a step {mix}")
 
     # K9, P1, P2 against their plain versions at grid 2, iters 8
     errs.update(mix_chain=[], op_chain=[], bf16_chain=[])
@@ -2382,15 +2415,24 @@ def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
         errs["op_chain"].append(hold_probe(
             "op_chain", f"{inj} nc=4 iters=8", got,
             PR.op_chain_ref(x2, inject=inj, iters=8, nc=4), PROBE_TOL))
+    n_p2 = 0
     for inj in PR.BF16_INJECTS:
         for bf16 in (False, True):
-            got = twice_probe(lambda: PR.bf16_chain(
-                x2, inject=inj, bf16=bf16, iters=8, nc=4), "bf16_chain", inj)
-            errs["bf16_chain"].append(hold_probe(
-                "bf16_chain", f"{inj} {'bf16' if bf16 else 'f32'} nc=4 "
-                f"iters=8", got, PR.bf16_chain_ref(
-                    x2, inject=inj, bf16=bf16, iters=8, nc=4),
-                BF16_TOL if bf16 else PROBE_TOL))
+            for nc in PR.BF16_NCS:
+                label = f"{inj} {'bf16' if bf16 else 'f32'} nc={nc} iters=8"
+                got = twice_probe(lambda: PR.bf16_chain(
+                    x2, inject=inj, bf16=bf16, iters=8, nc=nc),
+                    "bf16_chain", label)
+                ref = PR.bf16_chain_ref(x2, inject=inj, bf16=bf16, iters=8,
+                                        nc=nc)
+                errs["bf16_chain"].append(hold_probe(
+                    "bf16_chain", label, got, ref,
+                    BF16_TOL if bf16 else PROBE_TOL))
+                check(torch.equal(got, ref),
+                      f"bf16_chain {label} differs from bf16_chain_ref")
+                n_p2 += 1
+    print(f"P2: all {n_p2} instantiations (mul, mix; f32, bf16; nc "
+          f"{PR.BF16_NCS}) bit-identical to bf16_chain_ref")
     print("all probes two launches bit-identical: True")
 
     # rates: K9 at the blends, the P1 mul chain against the ceiling
@@ -2442,10 +2484,19 @@ def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
         ["--iters", "64", "--reps", "1", "--out", os.path.join(
             REPO, common.OUT_DIR, "op_weights_smoke.json")]), ["op_chain"])
     launches["op_chain"] = c["op_chain"]
-    _, c = drive("P2 bf16_probe (iters 64)", lambda: bf16_probe.main(
+    p2, c = drive("P2 bf16_probe (iters 64)", lambda: bf16_probe.main(
         ["--iters", "64", "--reps", "1", "--out", os.path.join(
             REPO, common.OUT_DIR, "bf16_probe_smoke.json")]), ["bf16_chain"])
     launches["bf16_chain"] = c["bf16_chain"]
+    for inj, row in p2["rows"].items():
+        print(f"P2 {inj}: bf16/f32 speedup {row['bf16_speedup']:.4f}; "
+              + "; ".join(
+                  f"{t} {row[t + '_fs_per_step']:.3f} fs a step, bound "
+                  f"{row[t + '_bound_fs_per_step']:.3f} ({row[t + '_bound_by']}"
+                  f"), share {row[t + '_share_of_bound']:.4f}"
+                  for t in ("f32", "bf16"))
+              + f" (iters 64, one rep, clock {p2['bound_clock_mhz']:.0f} MHz)"
+              f" [{card}]")
     _, c = drive(f"P3 pressure curve nc {p3_ncs}",
                  lambda: pressure_probe.curve(
                      blends["two-phase fwd+bwd"], p3_ncs, 64, 2, dev),
@@ -2468,29 +2519,63 @@ def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
                      lambda: PR.op_chain_ref(x, inject="mix", iters=8,
                                              nc=16),
                      x.numel() * 16 * 8 * 12, 1.0, PROBE_TOL, "mix, nc 16"),
-        # packed bf16x2: two lanes an instruction
+        # P2 (bf16 mix; bf16 mul below): bounds priced pipe by pipe
         "bf16_chain": (lambda: PR.bf16_chain(x, inject="mix", bf16=True,
                                              iters=8, nc=16, blocks=sms * 8),
                        lambda: PR.bf16_chain_ref(x, inject="mix", bf16=True,
                                                  iters=8, nc=16),
-                       x.numel() * 16 * 8 * 12, 2.0, BF16_TOL,
+                       x.numel() * 16 * 8, None, BF16_TOL,
                        "bf16 mix, nc 16"),
+        "bf16_chain mul": (lambda: PR.bf16_chain(
+            x, inject="mul", bf16=True, iters=64, nc=32, blocks=sms * 8),
+            lambda: PR.bf16_chain_ref(x, inject="mul", bf16=True, iters=64,
+                                      nc=32),
+            x.numel() * 32 * 64, None, BF16_TOL, "bf16 mul, nc 32"),
     }
+    p2_extra = {}
     for kname, (kern, plain, ops, lanes, tol, label) in timed.items():
         n_el = xs.numel() if kname == "mix_chain" else x.numel()
-        errs[kname].append(hold_probe(kname, f"{label} timed", kern(),
-                                      plain(), tol))
+        iters = 64 if kname == "bf16_chain mul" else 8
+        got, ref = kern(), plain()
+        err = hold_probe(kname.split()[0], f"{label} timed", got, ref, tol)
+        check(lanes is not None or torch.equal(got, ref),
+              f"{kname} {label} differs from bf16_chain_ref")
+        del got, ref
         tp1 = time_ms(plain, 1)
         tk1, tk2 = time_ms(kern, 10), time_ms(kern, 10)
         tp2 = time_ms(plain, 1)
         tk, tp = (tk1 + tk2) / 2, (tp1 + tp2) / 2
-        bnd = ops / (lanes * common.fp32_ceiling(sms, max_clock)) * 1e3
-        times[kname], bounds[kname] = (tk, tp), (bnd, "operations")
-        print(f"time {kname} {label}, {n_el} elements, iters 8: kernel "
-              f"{tk:.4f} ms ({tk1:.4f}, {tk2:.4f}); "
-              f"plain {tp:.2f} ms; bound {bnd:.5f} ms ({ops:.4g} budget ops "
-              f"at {lanes:.0f} x {sms} SMs x 128 x {max_clock:.0f} MHz) "
+        if lanes is None:
+            inj = "mul" if kname.endswith("mul") else "mix"
+            b = common.chain_step_bound(common.P2_STEPS[(inj, True)], ops,
+                                        sms, max_clock)
+            bnd, how = b["seconds"] * 1e3, (
+                f"{ops:.4g} element-steps, set by {b['by']}: " + ", ".join(
+                    f"{k} {v * 1e3:.5f}" for k, v in b["pipes"].items()))
+        else:
+            bnd = ops / (lanes * common.fp32_ceiling(sms, max_clock)) * 1e3
+            how = (f"{ops:.4g} budget ops at {lanes:.0f} x {sms} SMs x 128 "
+                   f"x {max_clock:.0f} MHz")
+        if kname == "bf16_chain mul":
+            p2_extra.update(mul_ms=tk, mul_plain_ms=tp, mul_bound_ms=bnd,
+                            mul_bound_pipe=b["by"], mul_max_abs_err=err,
+                            mul_inputs=f"{n_el} elements, 32 chains, 64 "
+                            f"iterations")
+        else:
+            errs[kname].append(err)
+            times[kname], bounds[kname] = (tk, tp), (bnd, "operations")
+            if lanes is None:
+                p2_extra.update(bound_pipe=b["by"])
+        print(f"time {kname} {label}, {n_el} elements, iters {iters}: "
+              f"kernel {tk:.4f} ms ({tk1:.4f}, {tk2:.4f}); plain {tp:.2f} "
+              f"ms; bound {bnd:.5f} ms ({how}); share {bnd / tk:.4f} "
               f"[{card}]")
+    # the by-pipe bounds of the f32 rows, per element-step
+    for inj in PR.BF16_INJECTS:
+        b = common.chain_step_bound(common.P2_STEPS[(inj, False)], 1.0, sms,
+                                    max_clock)
+        print(f"bound P2 {inj} f32: {b['seconds'] * 1e15:.3f} fs an "
+              f"element-step, set by {b['by']} [{card}]")
 
     # the kernels' bounds on their timed inputs: their class ops at K9's
     # rate for their blend, or their bytes, whichever is larger
@@ -2511,6 +2596,7 @@ def probe_phase(dev, card, kernel_works, launches, errs, times, bounds):
               f"{w['bytes']:.4g} B {t_bytes:.5f} ms); kernel "
               f"{times[kname][0]:.4f} ms = {b / times[kname][0]:.4f} of it "
               f"[{card}]")
+    k9["bf16_chain"] = p2_extra
     print(f"phase 13: {time.perf_counter() - t13:.1f} s")
     return k9
 

@@ -13,18 +13,32 @@
 //
 // What runs packed on Hopper (sm_90): the bf16x2 multiply and add
 // (__hmul2_rn, __hadd2_rn: one rounding each, never contracted, like
-// -fmad=false's FMUL/FADD), the compare (__hgt2_mask: a bf16x2 set, one
-// 16-bit mask a half) and the select (a bitwise blend of the two words on
-// that mask).  The compare is exact against the JAX chain's f32 compare
-// y > d: for a bf16 y, y > d holds exactly when y > bf16_round_down(d).
-// What is upcast: rsqrt (Hopper has no bf16 rsqrt; both halves go to f32,
-// rsqrtf on the MUFU, and back with one packing round), as the JAX chain
-// upcasts it.
+// -fmad=false's FMUL/FADD; HMUL2.BF16_V2 and HADD2.BF16_V2 in the SASS),
+// the compare (__hgt2_mask: HSET2, one 16-bit mask a half) and the select
+// (one LOP3 blending the two words on that mask).  The compare is exact
+// against the JAX chain's f32 compare y > d: for a bf16 y, y > d holds
+// exactly when y > bf16_round_down(d).  What is upcast: rsqrt (Hopper has
+// no bf16 rsqrt; both halves go to f32, to the MUFU, and back with one
+// packing round), as the JAX chain upcasts it.
 //
-// Bound: issue, as P1 (csrc/op_probe.cu): chains in registers (NC a
-// template parameter), the loop unrolled by 4, c and d from memory, bfix
-// through an empty asm each step, every chain in the stored sum, built
-// with -fmad=false (kernels/cuda_build.py).
+// Bound (probes/common.py::chain_step_bound, pipe by pipe): `mul` by the
+// packed lanes, `mix` by the MUFU (two rsqrt a pair).  On this card the
+// packed multiply and add issue to the FMA pipe (HMUL2, HADD2, HFMA2) at
+// half the FP32 warp rate, bf16 and fp16 alike, and to the HFMA2.MMA form
+// at the same rate again; ptxas splits a chain's packed operations between
+// the two only where no operand is a swizzled half (R.H0_H0), the form it
+// picks for a pair whose halves it can prove equal, as c's are.  So the
+// `mul` chain takes c through a shuffle of the thread's own lane
+// (`opaque`): a whole register operand, half the multiplies on
+// HFMA2.MMA, twice FP32's element rate.  The `mix` chain keeps the FMA
+// pipe alone: the MUFU bounds it, and the HFMA2.MMA form made it slower
+// (PERF.md §6).  Its step unpacks with a shift and a mask, and both
+// kernels' rsqrt is rsqrtf, so the ratio compares the two types and
+// nothing else.
+//
+// Chains in registers (NC a template parameter), the loop unrolled by 4,
+// c and d from memory, bfix through an empty asm each step, every chain
+// in the stored sum, built with -fmad=false (kernels/cuda_build.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -32,8 +46,8 @@ namespace rtfs {
 
 constexpr int kThreads = 256;
 constexpr int kTileElems = 8 * 256;
-// probes/bf16_probe.py::NC_SWEEP
-constexpr int kNcs[] = {4, 8, 12, 16};
+// kernels/probe.py::BF16_NCS
+constexpr int kNcs[] = {4, 8, 12, 16, 32};
 constexpr int kNumNcs = sizeof(kNcs) / sizeof(kNcs[0]);
 
 // probes/bf16_probe.py::INJECTS
@@ -51,11 +65,10 @@ __device__ __forceinline__ __nv_bfloat162 from_bits(unsigned u) {
   return v;
 }
 
-// a where m's half is all ones, else b
-__device__ __forceinline__ __nv_bfloat162 select2(unsigned m,
-                                                  __nv_bfloat162 a,
-                                                  __nv_bfloat162 b) {
-  return from_bits((as_bits(a) & m) | (as_bits(b) & ~m));
+// a where m's half is all ones, else b (one LOP3)
+__device__ __forceinline__ unsigned select2(unsigned m, unsigned a,
+                                            unsigned b) {
+  return (a & m) | (b & ~m);
 }
 
 template <int INJ, int NC>
@@ -97,6 +110,28 @@ f32_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
   }
 }
 
+__device__ __forceinline__ unsigned mul2(unsigned a, unsigned b) {
+  return as_bits(__hmul2_rn(from_bits(a), from_bits(b)));
+}
+
+__device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
+  return as_bits(__hadd2_rn(from_bits(a), from_bits(b)));
+}
+
+// v itself, through a shuffle of the thread's own lane: ptxas cannot see
+// that its halves are equal, so it keeps it a whole register operand.
+__device__ __forceinline__ unsigned opaque(unsigned v) {
+  return __shfl_sync(__activemask(), v, threadIdx.x & 31);
+}
+
+// rsqrt of each half of a packed pair, in f32 with rsqrtf as the f32
+// kernel's, rounded back to bf16; the unpack is a shift and a mask.
+__device__ __forceinline__ unsigned rsqrt2(unsigned a) {
+  const float lo = __uint_as_float(a << 16);
+  const float hi = __uint_as_float(a & 0xffff0000u);
+  return as_bits(__floats2bfloat162_rn(rsqrtf(lo), rsqrtf(hi)));
+}
+
 // Pairs (2p, 2p+1): the low half holds element 2p.
 template <int INJ, int NC>
 __global__ void __launch_bounds__(kThreads)
@@ -108,44 +143,42 @@ bf16_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
     const int e = 2 * p;
     const int t0 = e - e % kTileElems;
     const float d32 = x[t0 + 1];
-    const __nv_bfloat162 c = __float2bfloat162_rn(x[t0] * 2.0f);
-    const __nv_bfloat162 d = __float2bfloat162_rn(d32);
-    const __nv_bfloat162 d01 = __float2bfloat162_rn(d32 * 0.1f);
+    const unsigned c2 = as_bits(__float2bfloat162_rn(x[t0] * 2.0f));
+    const unsigned c = INJ == kMul ? opaque(c2) : c2;
+    const unsigned d = as_bits(__float2bfloat162_rn(d32));
+    const unsigned d01 = as_bits(__float2bfloat162_rn(d32 * 0.1f));
     const __nv_bfloat16 dlo = __float2bfloat16_rd(d32);
-    const __nv_bfloat162 dcmp = __halves2bfloat162(dlo, dlo);
+    const unsigned dcmp = as_bits(__halves2bfloat162(dlo, dlo));
     const float x0 = x[e], x1 = x[e + 1];
     unsigned bfix = (x0 > d32 ? 0x0000ffffu : 0u) |
                     (x1 > d32 ? 0xffff0000u : 0u);
-    const __nv_bfloat162 xb = __floats2bfloat162_rn(x0, x1);
-    __nv_bfloat162 y[NC];
+    const unsigned xb = as_bits(__floats2bfloat162_rn(x0, x1));
+    unsigned y[NC];
 #pragma unroll
     for (int j = 0; j < NC; ++j)
-      y[j] = __hmul2_rn(xb, __float2bfloat162_rn(
-                                static_cast<float>(1.0 + 0.001 * j)));
+      y[j] = mul2(xb, as_bits(__float2bfloat162_rn(
+                          static_cast<float>(1.0 + 0.001 * j))));
 #pragma unroll 4
     for (int it = 0; it < iters; ++it) {
       asm("" : "+r"(bfix));
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        __nv_bfloat162 v = y[j];
+        unsigned v = y[j];
         if constexpr (INJ == kMul) {
-          v = __hmul2_rn(v, c);
+          v = mul2(v, c);
         } else {
-          const unsigned gt = __hgt2_mask(v, dcmp);
-          v = select2(gt, __hmul2_rn(v, c), __hadd2_rn(v, d));
-          v = select2(bfix, __hadd2_rn(__hmul2_rn(v, c), d), v);
-          const float2 a = __bfloat1622float2(__hadd2_rn(__hmul2_rn(v, c),
-                                                         d01));
-          v = __floats2bfloat162_rn(rsqrtf(a.x), rsqrtf(a.y));
-          v = __hmul2_rn(v, c);
+          const unsigned gt = __hgt2_mask(from_bits(v), from_bits(dcmp));
+          v = select2(gt, mul2(v, c), add2(v, d));
+          v = select2(bfix, add2(mul2(v, c), d), v);
+          v = mul2(rsqrt2(add2(mul2(v, c), d01)), c);
         }
         y[j] = v;
       }
     }
-    __nv_bfloat162 acc = y[0];
+    unsigned acc = y[0];
 #pragma unroll
-    for (int j = 1; j < NC; ++j) acc = __hadd2_rn(acc, y[j]);
-    const float2 f = __bfloat1622float2(acc);
+    for (int j = 1; j < NC; ++j) acc = add2(acc, y[j]);
+    const float2 f = __bfloat1622float2(from_bits(acc));
     out[e] = f.x;
     out[e + 1] = f.y;
   }

@@ -51,8 +51,11 @@ INJECTS = ("mul", "add", "max", "sel", "cmpsel", "abs", "sign", "rsqrt",
            "sqrt", "div", "recip", "recip_nr", "floor", "mix")
 #: P2's classes (csrc/bf16_probe.cu::Inject)
 BF16_INJECTS = ("mul", "mix")
-#: chain counts of P1 and P2 (csrc/op_probe.cu, bf16_probe.cu::kNcs)
+#: chain counts of P1 (csrc/op_probe.cu::kNcs)
 OP_NCS = (4, 8, 12, 16)
+#: chain counts of P2 (csrc/bf16_probe.cu::kNcs): 32 lets the f32 `mul`
+#: chain, the ratio's denominator, reach its FP32 rate
+BF16_NCS = (4, 8, 12, 16, 32)
 THREADS = 256
 
 
@@ -237,7 +240,7 @@ def op_chain(x: torch.Tensor, *, inject: str, iters: int, nc: int,
 
 def bf16_chain(x: torch.Tensor, *, inject: str, bf16: bool, iters: int,
                nc: int, blocks=None) -> torch.Tensor:
-    """P2 on ``x``: ``nc`` (one of ``OP_NCS``) ``mul`` or ``mix`` chains per
+    """P2 on ``x``: ``nc`` (one of ``BF16_NCS``) ``mul`` or ``mix`` chains per
     element in bf16 (``bf16``; a thread's chain holds two neighbouring
     elements) or f32.  CUDA tensors launch csrc/bf16_probe.cu; CPU tensors
     run ``bf16_chain_ref``."""
@@ -248,8 +251,8 @@ def bf16_chain(x: torch.Tensor, *, inject: str, bf16: bool, iters: int,
         return bf16_chain_ref(x, inject=inject, bf16=bf16, iters=iters,
                               nc=nc)
     _cuda_input("bf16_chain", x)
-    if nc not in OP_NCS:
-        raise ValueError(f"nc={nc} is not among {OP_NCS}")
+    if nc not in BF16_NCS:
+        raise ValueError(f"nc={nc} is not among {BF16_NCS}")
     lib = cuda_build.load_probe("bf16_probe.cu")
     return _launch("bf16_chain", lib, x, iters,
                    (BF16_INJECTS.index(inject), int(bf16), nc), blocks)
@@ -375,19 +378,24 @@ def ptxas_resources(log: str, kernel: str) -> Dict[Tuple[int, ...], dict]:
     return out
 
 
-def sass_opcodes(library: str, kernel: str) -> Dict[Tuple[int, ...], dict]:
-    """Opcode counts of each instantiation of ``kernel`` in a built
-    library's SASS (``cuobjdump -sass``), keyed by its integer template
-    arguments: what the compiler made of each class (FFMA where it fused,
-    MUFU, FSEL, HFMA2 ...)."""
+def sass_text(library: str) -> str:
+    """A built library's SASS as ``cuobjdump -sass`` prints it."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
     res = subprocess.run([tool, "-sass", library], capture_output=True,
                          text=True, timeout=300)
     if res.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {res.stderr[:2000]}")
+    return res.stdout
+
+
+def sass_instructions(text: str, kernel: str
+                      ) -> Dict[Tuple[int, ...], List[Tuple[int, str, str]]]:
+    """The instructions of each instantiation of ``kernel`` in SASS
+    ``text``, keyed by its integer template arguments: (address, opcode,
+    the instruction as printed)."""
     out, current = {}, None
-    for line in res.stdout.splitlines():
+    for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
@@ -395,15 +403,106 @@ def sass_opcodes(library: str, kernel: str) -> Dict[Tuple[int, ...], dict]:
             if re.search(rf"\d{kernel}I", name):
                 current = tuple(int(a) for a in re.findall(
                     r"Li(-?\d+)E", name))
-                out[current] = {}
+                out[current] = []
             continue
         if current is None:
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
-                      line)
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)[^;]*);", line)
         if m:
-            op = m.group(1)
-            out[current][op] = out[current].get(op, 0) + 1
+            out[current].append((int(m.group(1), 16), m.group(3),
+                                 m.group(2).strip()))
+    return out
+
+
+def sass_opcodes(library: str, kernel: str) -> Dict[Tuple[int, ...], dict]:
+    """Opcode counts of each instantiation of ``kernel`` in a built
+    library's SASS (``cuobjdump -sass``), keyed by its integer template
+    arguments: what the compiler made of each class (FFMA where it fused,
+    MUFU, FSEL, HFMA2 ...).  An opcode is counted by its first word
+    (``HMUL2`` for ``HMUL2.BF16_V2``)."""
+    out = {}
+    for key, ins in sass_instructions(sass_text(library), kernel).items():
+        counts: dict = {}
+        for _, op, _ in ins:
+            op = op.split(".")[0]
+            counts[op] = counts.get(op, 0) + 1
+        out[key] = counts
+    return out
+
+
+def hot_loop(ins: List[Tuple[int, str, str]]) -> List[Tuple[int, str, str]]:
+    """The body of the largest innermost loop that touches no memory in
+    one function's own instructions (``sass_instructions``): a span from a
+    backward branch's target to the branch, holding no other backward
+    branch and no load or store (a chain loop, not a grid-stride loop).
+    Out-of-line functions the kernel calls, which cuobjdump lists inside
+    it from the CALL's target to the RET, are left out."""
+    called = []
+    for addr, op, text in ins:
+        m = re.search(r"\bCALL\S*\s+0x([0-9a-f]+)", text)
+        if op.startswith("CALL") and m:
+            start = int(m.group(1), 16)
+            end = min((a for a, o, _ in ins if o.startswith("RET")
+                       and a >= start), default=start)
+            called.append((start, end))
+    ins = [x for x in ins if not any(a <= x[0] <= b for a, b in called)]
+    loops = []
+    for addr, op, text in ins:
+        m = re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", text)
+        if op == "BRA" and m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b)
+                        for c, d in loops)]
+    bodies = [[x for x in ins if a <= x[0] <= b] for a, b in inner]
+    bodies = [b for b in bodies
+              if not any(op.startswith(("LD", "ST")) for _, op, _ in b)]
+    return max(bodies, key=len, default=[])
+
+
+def sass_pipe(op: str) -> str:
+    """The pipe an sm_90 opcode (as ``sass_instructions`` gives it) issues
+    to, by the names of ``probes/common.py::PIPE_RATES``: ``fp16x2_mma``
+    the HFMA2.MMA form, ``fp16x2`` the other packed 16-bit arithmetic and
+    compares, ``fp32``, ``mufu``, ``conv``, ``control`` the loop's integer
+    add, compare and branch, ``alu`` the rest (bit operations, selects, f32
+    compares, 16x2 integer min)."""
+    if ".MMA" in op:
+        return "fp16x2_mma"
+    if op.startswith(("HMUL2", "HADD2", "HFMA2", "HSET2", "HSETP2",
+                      "HMNMX2")):
+        return "fp16x2"
+    if op.startswith(("FMUL", "FADD", "FFMA")):
+        return "fp32"
+    if op.startswith("MUFU"):
+        return "mufu"
+    if op.startswith(("F2FP", "F2F", "I2F", "F2I")):
+        return "conv"
+    if op.startswith(("BRA", "ISETP", "IADD3")):
+        return "control"
+    return "alu"
+
+
+def step_census(library: str, kernel: str, unroll: int = 4
+                ) -> Dict[Tuple[int, ...], dict]:
+    """The instructions one chain step issues in each instantiation of
+    ``kernel`` (template arguments ending in the chain count ``nc``): its
+    hot loop's (``hot_loop``) by pipe (``sass_pipe``) and by opcode, over
+    the ``unroll * nc`` steps the loop body holds."""
+    out = {}
+    for key, ins in sass_instructions(sass_text(library), kernel).items():
+        body = hot_loop(ins)
+        steps = unroll * key[-1]
+        pipes: dict = {}
+        ops: dict = {}
+        for _, op, _ in body:
+            pipes[sass_pipe(op)] = pipes.get(sass_pipe(op), 0) + 1
+            ops[op] = ops.get(op, 0) + 1
+        out[key] = dict(
+            pipes={k: v / steps for k, v in sorted(pipes.items())},
+            opcodes={k: v / steps for k, v in sorted(ops.items())},
+            issue=len(body) / steps, body=len(body))
     return out
 
 

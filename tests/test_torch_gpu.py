@@ -450,12 +450,38 @@ def test_op_and_bf16_chain_kernels_match_plain(cuda):
         assert torch.equal(a, PR.op_chain(x, inject=inj, iters=8, nc=4))
         ref = PR.op_chain_ref(x, inject=inj, iters=8, nc=4)
         assert _probe_rel(a, ref) <= PROBE_TOL, inj
+    # every P2 instantiation: bit-identical to its plain version, and two
+    # launches bit-identical
     for inj in PR.BF16_INJECTS:
         for bf16 in (False, True):
-            a = PR.bf16_chain(x, inject=inj, bf16=bf16, iters=8, nc=4)
-            ref = PR.bf16_chain_ref(x, inject=inj, bf16=bf16, iters=8, nc=4)
-            tol = PROBE_BF16_TOL if bf16 else PROBE_TOL
-            assert _probe_rel(a, ref) <= tol, (inj, bf16)
+            for nc in PR.BF16_NCS:
+                a = PR.bf16_chain(x, inject=inj, bf16=bf16, iters=8, nc=nc)
+                b = PR.bf16_chain(x, inject=inj, bf16=bf16, iters=8, nc=nc)
+                ref = PR.bf16_chain_ref(x, inject=inj, bf16=bf16, iters=8,
+                                        nc=nc)
+                tol = PROBE_BF16_TOL if bf16 else PROBE_TOL
+                assert _probe_rel(a, ref) <= tol, (inj, bf16, nc)
+                assert torch.equal(a, ref), (inj, bf16, nc)
+                assert torch.equal(a, b), (inj, bf16, nc)
+
+
+def test_bf16_mix_chain_matches_plain_on_subnormal_and_negative_arguments(
+        cuda):
+    """The bf16 mix kernel's rsqrt off the normal positive range: a
+    negative d (tile 0: negative arguments, NaN) and a subnormal c and d
+    (tile 1: subnormal arguments, which rsqrtf rescales) give the plain
+    version's output, NaN where it has NaN, at every chain count."""
+    from ray_tracer_fragment_shader_tpu_torch.kernels import probe as PR
+    from ray_tracer_fragment_shader_tpu_torch.utils import roofline as RL
+    x = RL.probe_input(2, cuda).clone()
+    x[0, 1] = -0.3
+    x[8, 0], x[8, 1] = 1e-39, 1e-39
+    for nc in PR.BF16_NCS:
+        a = PR.bf16_chain(x, inject="mix", bf16=True, iters=16, nc=nc)
+        ref = PR.bf16_chain_ref(x, inject="mix", bf16=True, iters=16, nc=nc)
+        nan = torch.isnan(ref)
+        assert bool(nan.any()) and torch.equal(torch.isnan(a), nan), nc
+        assert torch.equal(a[~nan], ref[~nan]), nc
 
 
 def test_probe_wrappers_refuse_other_devices_and_shapes(cuda):
